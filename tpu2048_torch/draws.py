@@ -1,0 +1,66 @@
+"""The draw seam: where every random number of the engine comes from.
+
+The JAX reference draws from threefry keys split on a fixed schedule
+(``tpu2048/train/trial.py:200-201, :85``); torch generators have no
+twin of that.  So the port's engine and trial never draw for
+themselves: they ask a draw source, through four methods named after
+the reference's draw sites.
+
+``TorchDraws`` serves production from one ``torch.Generator``.  A
+test can pass a source that replays the reference's own key schedule,
+so both packages play the same games from the same draws.
+"""
+
+from __future__ import annotations
+
+from typing import Protocol, Tuple
+
+import torch
+
+
+class Draws(Protocol):
+    def split(self) -> None:
+        """Advance to the next step's draws (the reference's per-step
+        ``key, k_est, k_spawn = split(key, 3)``)."""
+
+    def spawn(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(u, v): two (n,) f32 uniforms in [0, 1) for one spawn —
+        position and value (``fast.spawn_codes``)."""
+
+    def new(self, n: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor, torch.Tensor]:
+        """(p1, u1, p2r, u2) for fresh boards (``fast.new_codes``):
+        p1 in [0, 16) and p2r in [0, 15) int32, u1 and u2 f32
+        uniforms for the two tile values."""
+
+    def uniform(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        """f32 uniforms of ``shape`` (the random-baseline policy)."""
+
+
+class TorchDraws:
+    """Draws from one ``torch.Generator``, on the generator's device.
+
+    One stream serves every draw site, so ``split`` has nothing to do.
+    """
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.device = generator.device
+
+    def split(self) -> None:
+        pass
+
+    def uniform(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        return torch.rand(shape, generator=self.generator,
+                          device=self.device, dtype=torch.float32)
+
+    def spawn(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.uniform((n,)), self.uniform((n,))
+
+    def _randint(self, high: int, n: int) -> torch.Tensor:
+        return torch.randint(0, high, (n,), generator=self.generator,
+                             device=self.device, dtype=torch.int32)
+
+    def new(self, n: int):
+        return (self._randint(16, n), self.uniform((n,)),
+                self._randint(15, n), self.uniform((n,)))
