@@ -10,6 +10,8 @@ same games from the same draws as ``tpu2048``:
     the random policy draws ``uniform(k_est, (4, n))`` and
     ``spawn_codes`` draws from ``ku, kv = split(k_spawn)``
     (``fast.py:261-269``).
+
+``JaxTrainDraws`` replays the train step's schedule likewise.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 from functools import partial
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -75,6 +78,55 @@ class JaxDraws:
     def new(self, n: int):
         return tuple(_t(a).to(torch.int32) if a.dtype != np.float32
                      else _t(a) for a in _new_draws(self.k_init, n))
+
+
+@jax.jit
+def _split2(key):
+    return tuple(jax.random.split(key))
+
+
+@partial(jax.jit, static_argnums=1)
+def _weights_uniform(key, total):
+    return jax.random.uniform(key, (total,), jnp.float32)
+
+
+class JaxTrainDraws:
+    """Replays the reference train step's draws from ``key``:
+
+      * ``init_td_state``: ``kw, ke = split(key)``; the weights are
+        ``uniform(kw) * 0.01`` and ``init_env_codes`` draws from
+        ``split(ke, 4)`` (``td.py:195-201``); the state keeps ``key``;
+      * per step ``key, k_spawn, k_reset = split(key, 3)``
+        (``td.py:400``): spawns from ``split(k_spawn)``, the auto-reset
+        from ``split(k_reset, 4)``.
+
+    ``key`` is the state's key: a JAX state's ``key`` replays the
+    steps that follow it."""
+
+    def __init__(self, key):
+        self.key = key
+        self.kw, self.ke = _split2(key)
+        self.k_spawn = self.k_reset = None
+
+    def split(self) -> None:
+        self.key, self.k_spawn, self.k_reset = _split3(self.key)
+
+    def uniform(self, shape):
+        (total,) = shape
+        return _t(_weights_uniform(self.kw, total))
+
+    def spawn(self, n: int):
+        return tuple(_t(a) for a in _spawn_uv(self.k_spawn, n))
+
+    def _new(self, key, n):
+        return tuple(_t(a).to(torch.int32) if a.dtype != np.float32
+                     else _t(a) for a in _new_draws(key, n))
+
+    def new(self, n: int):
+        return self._new(self.ke, n)
+
+    def reset(self, n: int):
+        return self._new(self.k_reset, n)
 
 
 def rand_boards(n: int, seed: int = 0, high: int = 12) -> np.ndarray:

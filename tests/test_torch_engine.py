@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import JaxDraws, rand_boards
+from _torch_port import JaxDraws, JaxTrainDraws, rand_boards
 
 from tpu2048.engine import core as jcore
 from tpu2048.engine import fast as jfast
@@ -105,6 +105,34 @@ def test_new_codes_equal_with_jax_draws(seed):
     draws = JaxDraws()
     draws.k_init = key
     _eq(tfast.new_codes(1000, draws), jfast.new_codes(1000, key))
+
+
+@pytest.mark.parametrize("seed", [10, 11])
+def test_init_and_reset_where_codes_equal_with_jax_draws(seed):
+    """The train step's env init (``split(ke, 4)``) and auto-reset
+    (fresh boards drawn for the whole batch from ``k_reset``)."""
+    key = jax.random.PRNGKey(seed)
+    draws = JaxTrainDraws(key)
+    env = tfast.init_env_codes(256, draws)
+    jenv = jfast.init_env_codes(256, draws.ke)
+    for g, w in zip(env, jenv):
+        _eq(g, w)
+    _, codes = _codes(seed, 256)
+    rng = np.random.default_rng(seed)
+    score = rng.integers(0, 5000, 256).astype(np.int32)
+    odo = rng.integers(0, 900, 256).astype(np.int32)
+    done = rng.random(256) < 0.3
+    draws.split()
+    got = tfast.reset_where_codes(
+        tfast.EnvStateC(*map(torch.from_numpy, (codes, score, odo))),
+        torch.from_numpy(done), draws)
+    want = jfast.reset_where_codes(
+        jfast.EnvStateC(*map(jnp.asarray, (codes, score, odo))),
+        jnp.asarray(done), draws.k_reset)
+    for g, w in zip(got, want):
+        _eq(g, w)
+    assert (got.score.numpy()[done] == 0).all()
+    np.testing.assert_array_equal(got.codes.numpy()[~done], codes[~done])
 
 
 def test_torch_draws_ranges():

@@ -1,6 +1,6 @@
 """The port's features against the JAX reference, bitwise: copied
-geometry, feature and canonical indices, the D4 table fold and the
-canonical-form dense export."""
+geometry, feature and canonical indices, the D4 table fold (whole
+table and one class), and the canonical-form dense export."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -71,6 +71,40 @@ def test_symmetrize_sum_bitwise(n):
     x = np.random.default_rng(n).standard_normal(ts.total).astype(np.float32)
     want = np.asarray(jsym.symmetrize_sum(ts, jnp.asarray(x)))
     got = tsym.symmetrize_sum(tnt.get_tuple_set(n), torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _class_pair(n: int, seed: int):
+    """A random (2, g, size) pair over tuple set n's first 16^k class
+    (the 16^4 class at n >= 4, the 16^3 class at n = 3)."""
+    ts = jnt.get_tuple_set(n)
+    feat0, g, size = jsym._table_geometry(ts)[4][0]
+    rng = np.random.default_rng(seed)
+    return ts, feat0, g, rng.standard_normal((2, g, size)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [3, 4, 5])
+def test_symmetrize_class_sum_bitwise(n):
+    ts, feat0, g, pair = _class_pair(n, seed=20 + n)
+    want = np.asarray(jsym.symmetrize_class_sum(ts, feat0, g,
+                                                jnp.asarray(pair)))
+    got = tsym.symmetrize_class_sum(tnt.get_tuple_set(n), feat0, g,
+                                    torch.from_numpy(pair))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_symmetrize_class_sum_bitwise_to_fused_fold_n4():
+    """The fold's plain version against the TPU fold kernel itself
+    (Pallas interpret mode)."""
+    from tpu2048.ops import fold_kernel as jfold
+    from tpu2048.ops.onehot import build_table_classes
+
+    ts, feat0, g, pair = _class_pair(4, seed=30)
+    (c,) = build_table_classes(ts).matmul
+    want = np.asarray(jfold.fold_class_pair(ts, c, jnp.asarray(pair),
+                                            interpret=True))
+    got = tsym.symmetrize_class_sum(tnt.get_tuple_set(4), feat0, g,
+                                    torch.from_numpy(pair))
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -1,18 +1,22 @@
-"""The port's table ops: ``eval_class``'s plain version against the JAX
-Pallas kernel (interpret mode), and the evaluators against JAX's.  The
-CUDA kernel itself is tested on the card, in ``test_torch_cuda.py``."""
+"""The port's table ops: the plain versions of ``eval_class`` and
+``grad_class`` against the JAX Pallas kernels (interpret mode), the
+``fold_class`` kernel's gather plan against the plain fold, and the
+evaluators and class gradients against JAX's.  The CUDA kernels
+themselves are tested on the card, in ``test_torch_cuda.py``."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import rand_boards
+from _torch_port import dyadic_weights, rand_boards
 
 from tpu2048.features import ntuple as jnt
+from tpu2048.features import symmetry as jsym
 from tpu2048.ops import dispatch as jdisp
 from tpu2048.ops import onehot as joh
 from tpu2048.ops import pallas_kernels as pk
 from tpu2048_torch.features import ntuple as tnt
+from tpu2048_torch.features import symmetry as tsym
 from tpu2048_torch.ops import dispatch as tdisp
 from tpu2048_torch.ops import kernels
 from tpu2048_torch.ops import onehot as toh
@@ -126,3 +130,201 @@ def test_make_evaluator_matches_jax_n5(mode, canonical):
         jnp.abs(jnp.asarray(w)), jnp.asarray(boards)))
     np.testing.assert_array_less(np.abs(got.numpy() - want),
                                  2.0**-20 * scale)
+
+
+def _grad_inputs(g, h, l, b, seed):
+    rng = np.random.default_rng(seed)
+    hi = rng.integers(0, h, (b, g)).astype(np.int32)
+    lo = rng.integers(0, l, (b, g)).astype(np.int32)
+    dw = rng.standard_normal(b).astype(np.float32)
+    valid = rng.random(b) < 0.7
+    return hi, lo, dw, valid
+
+
+def _grad_loop(hi, lo, dw, valid, h, l):
+    """The scatter written out row by row in float64."""
+    b, g = hi.shape
+    dsum = np.zeros((g, h, l))
+    hits = np.zeros((g, h, l))
+    for i in np.flatnonzero(valid):
+        for gi in range(g):
+            dsum[gi, hi[i, gi], lo[i, gi]] += dw[i]
+            hits[gi, hi[i, gi], lo[i, gi]] += 1
+    return dsum, hits
+
+
+def _grad_port(hi, lo, dw, valid, h, l):
+    return [t.numpy() for t in kernels.grad_class(
+        *map(torch.from_numpy, (hi, lo, dw, valid)), h, l)]
+
+
+def test_grad_class_reference_matches_pallas_interpret():
+    """The shapes of ``tests/test_ops.py::test_pallas_grad_class_interpret``:
+    hits bitwise, dsum within the Pallas kernel's bf16x2 split."""
+    g, h, l = 4, 64, 64
+    hi, lo, dw, valid = _grad_inputs(g, h, l, 128, seed=1)
+    want = pk.grad_for(h, l)(*map(jnp.asarray, (hi, lo, dw, valid)), 64, True)
+    dsum, hits = _grad_port(hi, lo, dw, valid, h, l)
+    np.testing.assert_array_equal(hits, np.asarray(want[1]))
+    wd = np.asarray(want[0])
+    ref_d, _ = _grad_loop(hi, lo, dw, valid, h, l)
+    mass = _grad_loop(hi, lo, np.abs(dw), valid, h, l)[0]
+    # bf16x2 carries ~2^-18 of each term; allow 2^-17 of the entry's mass
+    np.testing.assert_array_less(np.abs(dsum - wd), 2.0**-17 * mass + 1e-30)
+    np.testing.assert_array_less(np.abs(dsum - ref_d), 2.0**-20 * mass + 1e-30)
+
+
+@pytest.mark.parametrize("b", [1, 100, 1001])
+def test_grad_class_reference_any_batch(b):
+    """Ragged batches, which the Pallas kernel does not take."""
+    g, h, l = 3, 16, 16
+    hi, lo, dw, valid = _grad_inputs(g, h, l, b, seed=b)
+    dsum, hits = _grad_port(hi, lo, dw, valid, h, l)
+    ref_d, ref_h = _grad_loop(hi, lo, dw, valid, h, l)
+    np.testing.assert_array_equal(hits, ref_h)
+    mass = _grad_loop(hi, lo, np.abs(dw), valid, h, l)[0]
+    np.testing.assert_array_less(np.abs(dsum - ref_d), 2.0**-20 * mass + 1e-30)
+
+
+def test_grad_class_bad_index_and_invalid_rows():
+    g, h, l = 3, 16, 16
+    hi, lo, dw, valid = _grad_inputs(g, h, l, 50, seed=7)
+    valid[:2] = [False, True]
+    hi[0, :] = -5  # an invalid row's indices are never read
+    lo[1, 2] = l  # a valid row's bad index flags its tuple
+    dsum, hits = _grad_port(hi, lo, dw, valid, h, l)
+    assert np.isnan(dsum[2, 0, 0])
+    assert np.isnan(dsum).sum() == 1
+    clean = valid.copy()
+    clean[1] = False
+    ref_h = _grad_loop(hi, lo, dw, clean, h, l)[1]
+    ref_h[:2] += _grad_loop(hi[1:2, :2], lo[1:2, :2], dw[1:2],
+                            valid[1:2], h, l)[1]
+    np.testing.assert_array_equal(hits, ref_h)
+
+
+def test_grad_class_on_cpu_counts_nothing_and_checks_inputs():
+    hi, lo, dw, valid = map(torch.from_numpy,
+                            _grad_inputs(3, 16, 16, 10, seed=3))
+    before = kernels.grad_class.launches
+    kernels.grad_class(hi, lo, dw, valid, 16, 16)
+    assert kernels.grad_class.launches == before
+    with pytest.raises(TypeError):
+        kernels.grad_class(hi.long(), lo, dw, valid, 16, 16)
+    with pytest.raises(TypeError):
+        kernels.grad_class(hi, lo, dw.double(), valid, 16, 16)
+    with pytest.raises(TypeError):
+        kernels.grad_class(hi, lo, dw, valid.int(), 16, 16)
+    with pytest.raises(ValueError):
+        kernels.grad_class(hi, lo[:5], dw, valid, 16, 16)
+
+
+@pytest.mark.parametrize("n", [4, 5])
+def test_make_class_grads_matches_jax_bitwise(n):
+    """Dyadic dw (exact sums in any order) against the reference's
+    one-hot einsum path, for both of the port's modes."""
+    ts = jnt.get_tuple_set(n)
+    rng = np.random.default_rng(n)
+    idx = np.array(jnt.feature_indices(
+        ts, jnp.asarray(rand_boards(64, seed=n).reshape(64, 16))))
+    dw = (rng.integers(-40, 41, 64) * 2.0**-12).astype(np.float32)
+    valid = rng.random(64) < 0.8
+    _, jfn = jdisp.make_class_grads(ts, "gather")
+    want = jfn(*map(jnp.asarray, (idx, dw, valid)))
+    for mode in ("gather", "pallas"):
+        classes, fn = tdisp.make_class_grads(tnt.get_tuple_set(n), mode)
+        got = fn(*map(torch.from_numpy, (idx, dw, valid)))
+        assert len(got) == len(want) == len(classes.matmul)
+        for (gd, gh), (wd, wh) in zip(got, want):
+            np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+            np.testing.assert_array_equal(gh.numpy(), np.asarray(wh))
+
+
+@pytest.mark.parametrize("canonical", [True, False])
+def test_make_train_evaluator_and_mxu_eval_idx_match_jax_n5(canonical):
+    """Dyadic weights: every sum is exact, so gather and the plain
+    kernels (bf16 selection included) agree with JAX bitwise."""
+    ts = jnt.get_tuple_set(5)
+    w = dyadic_weights(ts.total, seed=6)
+    boards = rand_boards(2 * 40, seed=6).reshape(2, 40, 16)
+    want = jdisp.make_train_evaluator(ts, "gather", canonical=canonical,
+                                      precision="bf16", split=True)(
+        jnp.asarray(w), jnp.asarray(boards))
+    jexact = jdisp.make_mxu_eval_idx(ts, "gather")
+    for mode in ("gather", "pallas"):
+        got = tdisp.make_train_evaluator(
+            tnt.get_tuple_set(5), mode, canonical=canonical,
+            precision="bf16")(torch.from_numpy(w), torch.from_numpy(boards))
+        for g, x in zip(got, want):
+            if x is None:
+                assert g is None
+            else:
+                np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+        idx2 = got[2].reshape(-1, ts.num_feat)
+        np.testing.assert_array_equal(
+            tdisp.make_mxu_eval_idx(tnt.get_tuple_set(5), mode)(
+                torch.from_numpy(w), idx2).numpy(),
+            np.asarray(jexact(jnp.asarray(w), jnp.asarray(idx2.numpy()))))
+
+
+def _fold_emulated(n, feat0, g, pair: np.ndarray) -> np.ndarray:
+    """The fold_class kernel's arithmetic in numpy: each output is the
+    8-term tree of the kernel, gathered straight from the input through
+    ``kernels.fold_plan``, in f32."""
+    plan = kernels.fold_plan(n, feat0, g)
+    size = pair.shape[-1]
+    k = {256: 2, 4096: 3, 65536: 4}[size]
+    t = np.repeat(np.arange(g), size)
+    e = np.tile(np.arange(size), g)
+
+    def image(r, t, e):
+        p = plan[r, t]
+        j = sum(((e >> (4 * (k - 1 - d))) & 15) * p[:, 1 + d]
+                for d in range(k))
+        return p[:, 0], j
+
+    out = []
+    for x in pair:  # one row of the pair
+        def at(a):
+            return x[a[0], a[1]]
+
+        a = (t, e)
+        b = image(2, *a)
+        a1, b1 = image(1, *a), image(1, *b)
+        leaves = [at(v) for v in (a, image(0, *a), a1, image(0, *a1),
+                                  b, image(0, *b), b1, image(0, *b1))]
+        y2a = (leaves[0] + leaves[1]) + (leaves[2] + leaves[3])
+        y2b = (leaves[4] + leaves[5]) + (leaves[6] + leaves[7])
+        out.append((y2a + y2b).reshape(g, size))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("n", [2, 3, 5])
+def test_fold_plan_gives_the_plain_fold_bitwise(n):
+    """The kernel's gather plan and its association order reproduce
+    ``symmetrize_class_sum`` bit for bit, for each class shape the
+    kernel takes (16^2 at n=2, 16^3 at n=3, 16^4 at n=5)."""
+    ts = tnt.get_tuple_set(n)
+    feat0, g, size = tsym._table_geometry(ts)[4][0]
+    pair = np.random.default_rng(n).standard_normal((2, g, size)
+                                                    ).astype(np.float32)
+    want = tsym.symmetrize_class_sum(ts, feat0, g, torch.from_numpy(pair))
+    np.testing.assert_array_equal(_fold_emulated(n, feat0, g, pair),
+                                  want.numpy())
+
+
+def test_fold_class_on_cpu_is_plain_and_checks_inputs():
+    ts = tnt.get_tuple_set(4)
+    pair = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 17, 65536)).astype(np.float32))
+    before = kernels.fold_class.launches
+    got = kernels.fold_class(ts, 0, 17, pair)
+    assert kernels.fold_class.launches == before
+    np.testing.assert_array_equal(
+        got.numpy(), tsym.symmetrize_class_sum(ts, 0, 17, pair).numpy())
+    with pytest.raises(TypeError):
+        kernels.fold_class(ts, 0, 17, pair[:, :16])
+    with pytest.raises(TypeError):
+        kernels.fold_class(ts, 0, 17, pair.double())
+    with pytest.raises(ValueError, match="16\\^1"):
+        kernels.fold_plan(6, 21, 12)  # the 14^6 class

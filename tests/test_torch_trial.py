@@ -115,7 +115,12 @@ def test_port_imports_no_jax():
         import tpu2048_torch.ops.build
         import tpu2048_torch.ops.kernels
         import tpu2048_torch.store.checkpoint
+        import tpu2048_torch.agent.td
+        import tpu2048_torch.train.loop
+        from tpu2048.config import AgentConfig, TrainConfig
+        from tpu2048.obs.logging import Logger
         from tpu2048_torch.features import ntuple
+        from tpu2048_torch.train.loop import Trainer
         from tpu2048_torch.train.trial import trial
         ts = ntuple.get_tuple_set(5)
         g = torch.Generator()
@@ -123,6 +128,16 @@ def test_port_imports_no_jax():
         r = trial(ts, ntuple.init_weights(ts, g), num=4, seed=0,
                   steps_per_call=64)
         assert r.odometers.min() > 0
+        class Once:
+            left = 1
+            def should_stop(self):
+                self.left -= 1
+                return self.left < 0
+        tr = Trainer("t", AgentConfig(n=4),
+                     TrainConfig(num_envs=8, steps_per_call=2),
+                     logger=Logger(console=False), device="cpu")
+        tr.run(job=Once())
+        assert int(tr.state.env.odometer.max()) == 2
         assert "jax" not in sys.modules, "the port loaded jax"
         print("ok")
     """)

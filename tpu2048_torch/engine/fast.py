@@ -178,7 +178,11 @@ def spawn_codes(
 def new_codes(n: int, draws: Draws) -> torch.Tensor:
     """Fresh starting boards: two random tiles each, placed directly
     (first uniform over 16 cells, second uniform over the 15 left)."""
-    p1, u1, p2r, u2 = draws.new(n)
+    return _two_tile_codes(*draws.new(n))
+
+
+def _two_tile_codes(p1, u1, p2r, u2) -> torch.Tensor:
+    """Boards from the four draws of ``Draws.new`` / ``Draws.reset``."""
     v1, v2 = _tile_values(u1), _tile_values(u2)
     p2 = p2r + (p2r >= p1).to(torch.int32)
     rows = torch.arange(4, device=p1.device)[None, :]
@@ -187,6 +191,33 @@ def new_codes(n: int, draws: Draws) -> torch.Tensor:
     add2 = torch.where(rows == (p2 // 4)[:, None],
                        (v2 << ((3 - p2 % 4) * 4))[:, None], 0)
     return (add1 + add2).to(torch.int32)
+
+
+class EnvStateC(NamedTuple):
+    """Batched env state of the codes engine (``fast.EnvStateC``)."""
+
+    codes: torch.Tensor  # (N, 4) int32 packed row codes
+    score: torch.Tensor  # (N,) int32
+    odometer: torch.Tensor  # (N,) int32
+
+
+def reset_where_codes(state: EnvStateC, done: torch.Tensor, draws: Draws
+                      ) -> EnvStateC:
+    """Fresh boards for the ``done`` envs.  The draws cover the whole
+    batch every call, as in the reference, so the draw stream does not
+    depend on how many envs finished."""
+    fresh = _two_tile_codes(*draws.reset(state.codes.shape[0]))
+    return EnvStateC(
+        codes=torch.where(done[:, None], fresh, state.codes),
+        score=torch.where(done, 0, state.score),
+        odometer=torch.where(done, 0, state.odometer),
+    )
+
+
+def init_env_codes(n: int, draws: Draws) -> EnvStateC:
+    codes = new_codes(n, draws)
+    zeros = torch.zeros(n, dtype=torch.int32, device=codes.device)
+    return EnvStateC(codes=codes, score=zeros, odometer=zeros.clone())
 
 
 def max_tile_codes(codes: torch.Tensor) -> torch.Tensor:

@@ -117,3 +117,33 @@ def symmetrize_sum(ts: TupleSet, delta: torch.Tensor) -> torch.Tensor:
     y = y + _apply_transform(ts, y, transforms[3])  # r^2
     y = y + _apply_transform(ts, y, transforms[1])  # r
     return y
+
+
+def _apply_class_transform(ts: TupleSet, block: torch.Tensor, maps,
+                           feat0: int, g: int) -> torch.Tensor:
+    """T_s restricted to one size class: ``block`` is (..., g, size),
+    the class's g per-tuple tables.  D4 maps the tables of one size
+    among themselves, so the restriction is closed."""
+    _offsets, _sizes, bases, ks, _classes = _table_geometry(ts)
+    base, k = bases[feat0], ks[feat0]
+    pieces = [None] * g
+    for ft, fs, perm in maps:
+        if feat0 <= ft < feat0 + g:
+            if not feat0 <= fs < feat0 + g:
+                raise ValueError("class not closed under D4")
+            pieces[ft - feat0] = _digit_transpose(
+                block[..., fs - feat0, :], base, k, perm)
+    return torch.stack(pieces, dim=-2)
+
+
+def symmetrize_class_sum(ts: TupleSet, feat0: int, g: int,
+                         block: torch.Tensor) -> torch.Tensor:
+    """``symmetrize_sum`` restricted to one size class's (..., g, size)
+    block, in the same three doubling passes and addition order, so
+    bitwise the reference's.  The plain version of the ``fold_class``
+    kernel (``ops/kernels.py``)."""
+    transforms = build_sym_transforms(ts.n)
+    y = block + _apply_class_transform(ts, block, transforms[0], feat0, g)
+    y = y + _apply_class_transform(ts, y, transforms[3], feat0, g)
+    y = y + _apply_class_transform(ts, y, transforms[1], feat0, g)
+    return y

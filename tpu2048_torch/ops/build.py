@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``*.cu`` file under ``csrc/`` is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded
+Every ``*.cu`` file under ``csrc/`` is compiled by its own ``nvcc``
+process for ``sm_90a``, all started together, and the objects are
+linked into one shared library with a plain C interface, loaded
 through ``ctypes``.  The build runs at first use, from the sources in
 the checkout only, into ``_build/`` beside this file (git-ignored).
 The library's name carries a hash of the sources and the flags, so an
@@ -23,10 +24,21 @@ from typing import List
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# name -> argtypes of each C entry point; all return an int
+# (a cudaError_t, or for cuda_error_string a char*)
+_ENTRY_POINTS = {
+    # tables, table_bf16, hi, lo, out, B, G, H, L, stream
+    "eval_class_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # hi, lo, dw, valid, dsum, hits, B, G, H, L, stream
+    "grad_class_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, out, plan, R, G, k, stream
+    "fold_class_launch": [_P, _P, _P, _I, _I, _I, _P],
+}
 
 
 def _sources() -> List[Path]:
@@ -56,6 +68,23 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libtpu2048_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: List[List[str]]) -> str:
+    """Run the commands concurrently; raise on the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
 def build_library() -> Path:
     """Compile the kernels unless a library for these sources exists.
     ``nvcc``'s report (``-Xptxas=-v``: registers, spills) is kept
@@ -65,35 +94,28 @@ def build_library() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name and rename, so a concurrent or cut
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # build in a temporary directory and rename the library, so a
+    # concurrent or cut build never leaves a half-written one under
+    # the final name
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp, src.stem + ".o") for src in _sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(_sources(), objs)])
+        lib = Path(tmp, out.name)
+        log += _run_all([[nvcc, *ARCH, "-shared", "-o", str(lib),
+                          *map(str, objs)]])
+        out.with_suffix(".log").write_text(log)
+        os.replace(lib, out)
     return out
 
 
 @lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
-    lib.eval_class_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.eval_class_launch.restype = ctypes.c_int
-    lib.eval_class_error_string.argtypes = [ctypes.c_int]
-    lib.eval_class_error_string.restype = ctypes.c_char_p
+    for name, argtypes in _ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
     return lib

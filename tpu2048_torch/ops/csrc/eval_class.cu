@@ -94,7 +94,8 @@ int eval_class_launch(const void* tables, int table_bf16, const int* hi,
   return launch<float>(tables, hi, lo, out, B, G, H, L, s);
 }
 
-const char* eval_class_error_string(int code) {
+// The message of a cudaError_t returned by any *_launch of the library.
+const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -3,7 +3,9 @@
 Checkpoints keep one format: the port reads what
 ``tpu2048.store.checkpoint.save_agent`` writes, through the
 reference's own jax-free ``load_agent``, and turns the weights into a
-tensor on the device asked for.
+tensor on the device asked for.  ``td_state_from_numpy`` does the same
+for a whole train state of the reference, so both packages can step
+one state.
 """
 
 from __future__ import annotations
@@ -38,3 +40,35 @@ def load_agent_dense(
     if is_canonical(acfg):
         w = to_dense_table(get_tuple_set(acfg.n), w)
     return acfg, w, meta
+
+
+def td_state_from_numpy(state, device):
+    """The reference's ``TDState`` (any arrays ``np.asarray`` takes,
+    e.g. a JAX state) as the port's ``agent.td.TDState`` on
+    ``device``.  Its RNG key has no torch twin and is left out: the
+    port draws from a draw source.  The recorder's logs gain the
+    port's zeroed spill column."""
+    from ..agent import td
+    from ..engine.fast import EnvStateC
+
+    def t(x):
+        return torch.from_numpy(np.array(x)).to(device)
+
+    def logs(x):
+        x = np.asarray(x)
+        return t(np.concatenate([x, np.zeros_like(x[:, :1])], axis=1))
+
+    rec = state.recorder
+    return td.TDState(
+        weights=t(state.weights), opt_e=t(state.opt_e),
+        opt_a=t(state.opt_a), alpha=t(state.alpha),
+        next_decay=t(state.next_decay), top_tile=t(state.top_tile),
+        env=EnvStateC(*(t(x) for x in state.env)),
+        prev_idx=t(state.prev_idx), prev_value=t(state.prev_value),
+        prev_valid=t(state.prev_valid),
+        metrics=td.Metrics(*(t(x) for x in state.metrics)),
+        recorder=td.Recorder(
+            moves=logs(rec.moves), spawns=logs(rec.spawns),
+            **{f: t(getattr(rec, f)) for f in td.Recorder._fields[2:]}),
+        prev_cidx=t(state.prev_cidx), prev_cmult=t(state.prev_cmult),
+    )
