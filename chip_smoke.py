@@ -38,12 +38,26 @@ Phases, one line of output each (the kernel phases one per check):
      replays to its score, and the checkpoint loads through
      ``tpu2048.store.checkpoint.load_agent`` and plays 256 games
      through the port; env-steps/s, wall per segment, and the ma-100
-     of the first and last windows (the learning signal).
+     of the first and last windows (the learning signal);
+  9. search: ``eval_class`` "bf16" at the search tree's largest chunk,
+     B = 2,000,000 rows of the (17, 256, 256) class, against its plain
+     version within 2^-20 of sum |terms|, and both timed; then the
+     phase-4 agent plays 256 games with depth-3 / width-4 /
+     since_empty=6 expectimax through ``trial`` with
+     ``table_ops="auto"`` (the tree's values through the kernel in
+     bf16) and again with ``"gather"``, from one seed: dyadic weights
+     are exact in bf16, so the games must agree exactly; both paths
+     are warmed first on crowded boards, and each plays twice, timed
+     in the order kernel, gather, gather, kernel; the kernel's
+     launches on this path (its first run), the compaction-tier
+     histogram, tree chunks per step, ms per move of all four runs,
+     and the best game's replay.
 
-Then a JSON line of the kernels of the two paths (name, route, source,
-the TPU kernel it replaces, its launches in the serve and train runs,
-its largest error against the plain version, and its and the plain
-version's time in ms), and last ``{"ok": true, "device": {...}}``.
+Then a JSON line of the kernels of the three paths (name, route,
+source, the TPU kernel it replaces, its launches in the serve, train
+and search runs, its largest error against the plain version, and its
+and the plain version's time in ms), and last ``{"ok": true,
+"device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card the script
 exits 1 before any phase.  It imports no jax.
 """
@@ -65,6 +79,8 @@ SERVE_B = 4 * SERVE_GAMES
 TRAIN_B = 8192  # envs of the shipped TrainConfig
 TRAIN_SEGMENTS = 12
 RAGGED_B = 1001
+SEARCH_GAMES = 256
+SEARCH_B = 2_000_000  # leaf rows of one chunk of the search tree
 SHAPES = [(17, 256, 256), (52, 64, 64), (24, 16, 16)]
 PRECISIONS = ["bf16x2", "f32", "bf16"]
 REL_TOL = 2.0**-20  # of sum |terms|: f32 summation order only
@@ -201,15 +217,16 @@ def phase_kernel() -> dict:
             "plain_ms": times["bf16x2"][1][0]}
 
 
-def phase_slice() -> int:
+def _served_agent():
+    """(tuple set, dense weights on the card) of a canonical-form n=5
+    agent with dyadic weights, saved in the reference's checkpoint
+    format and loaded by the port."""
     from tpu2048.config import AgentConfig
     from tpu2048.store.artifacts import LocalStore
     from tpu2048.store.checkpoint import save_agent
     from tpu2048_torch.features.canonical import is_canonical
     from tpu2048_torch.features.ntuple import get_tuple_set
-    from tpu2048_torch.ops import kernels
     from tpu2048_torch.store.checkpoint import load_agent_dense
-    from tpu2048_torch.train.trial import trial
 
     acfg = AgentConfig()  # n=5, canonical-orbit form
     assert acfg.n == 5 and is_canonical(acfg)
@@ -220,6 +237,31 @@ def phase_slice() -> int:
         save_agent(store, "smoke", acfg, w_np)
         _, w, _ = load_agent_dense(store, "smoke", device="cuda")
     assert w.device.type == "cuda" and w.shape == (ts.total,)
+    return ts, w
+
+
+def _check_replay(r, what: str) -> None:
+    """The best game's record replays to its score and final board."""
+    best = int(np.argmax(r.scores))
+    bg = r.best_game
+    if bg is None or bg["score"] != r.scores[best] or not \
+            np.array_equal(bg["final_board"], r.final_boards[best]):
+        raise AssertionError(f"{what}: the best game's replay does not "
+                             "reproduce it")
+
+
+def _check_same_games(a, b, what: str) -> None:
+    for name in ("scores", "odometers", "final_boards", "tiles"):
+        if not np.array_equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"{what}: kernel and gather runs differ "
+                                 f"in {name}")
+
+
+def phase_slice() -> int:
+    from tpu2048_torch.ops import kernels
+    from tpu2048_torch.train.trial import trial
+
+    ts, w = _served_agent()
 
     kernels.eval_class.launches = 0
     t0 = time.perf_counter()
@@ -233,20 +275,13 @@ def phase_slice() -> int:
     r_gather = trial(ts, w, num=SERVE_GAMES, seed=0, table_ops="gather")
     if kernels.eval_class.launches != launches:
         raise AssertionError("the gather run launched eval_class")
-    for name in ("scores", "odometers", "final_boards", "tiles"):
-        a, b = getattr(r_kernel, name), getattr(r_gather, name)
-        if not np.array_equal(a, b):
-            raise AssertionError(f"kernel and gather runs differ in {name}")
+    _check_same_games(r_kernel, r_gather, "slice")
     odos = r_kernel.odometers
     if odos.min() <= 0 or odos.max() >= 32768:
         raise AssertionError("not every game was played to its end")
-    best = int(np.argmax(r_kernel.scores))
-    bg = r_kernel.best_game
-    if bg is None or bg["score"] != r_kernel.scores[best] or not \
-            np.array_equal(bg["final_board"], r_kernel.final_boards[best]):
-        raise AssertionError("the best game's replay does not reproduce it")
+    _check_replay(r_kernel, "slice")
     total_moves = int(odos.sum())
-    _line("slice", games=SERVE_GAMES, n=acfg.n, weights=int(ts.total),
+    _line("slice", games=SERVE_GAMES, n=ts.n, weights=int(ts.total),
           avg_score=float(r_kernel.scores.mean()), total_moves=total_moves,
           max_moves=int(odos.max()), elapsed_s=r_kernel.elapsed,
           wall_s=wall, moves_per_s=total_moves / r_kernel.elapsed,
@@ -469,6 +504,100 @@ def phase_train(name: str) -> dict:
     return launches
 
 
+def phase_search() -> tuple:
+    """The search path: the kernel at the tree's scale, then depth-3
+    games through the kernel and through plain gathers.  Returns (the
+    path's eval_class launches, the tree-scale check's numbers)."""
+    from tpu2048.config import SearchConfig
+    from tpu2048_torch.ops import kernels
+    from tpu2048_torch.train.trial import trial
+
+    dev = torch.device("cuda")
+    g, h, l = SHAPES[0]
+    tables, hi, lo = _inputs(g, h, l, SEARCH_B, seed=13, dev=dev)
+    got = kernels.eval_class(tables, hi, lo, "bf16")
+    want = kernels.eval_class_reference(tables, hi, lo, "bf16")
+    gi = torch.arange(g, device=dev)
+    scale = tables.to(torch.bfloat16).float()[gi, hi.long(), lo.long()
+                                               ].abs().sum(dim=-1)
+    err = (got - want).abs()
+    ratio = float((err / scale).max())
+    if not bool(torch.isfinite(got).all()) or ratio > REL_TOL:
+        raise AssertionError(f"eval_class bf16 at B={SEARCH_B}: error "
+                             f"{ratio:.3g} of sum|terms| > {REL_TOL:.3g}")
+    k = _device_ms(lambda: kernels.eval_class(tables, hi, lo, "bf16"),
+                   inner=5)
+    p = _device_ms(
+        lambda: kernels.eval_class_reference(tables, hi, lo, "bf16"),
+        inner=5)
+    check = {"batch": SEARCH_B, "shape": [g, h, l], "precision": "bf16",
+             "max_abs_err": float(err.max()), "max_err_over_sum_abs": ratio,
+             "ms": k[0], "plain_ms": p[0]}
+    _line("search_kernel_check", bound=REL_TOL,
+          kernel_ms_median_min_max=list(k), plain_ms_median_min_max=list(p),
+          **check)
+    del tables, hi, lo, got, want, scale, err
+
+    ts, w = _served_agent()
+    scfg = SearchConfig(depth=3, width=4, since_empty=6)
+
+    def play(table_ops, **kw):
+        return trial(ts, w, num=SEARCH_GAMES, seed=2, search=scfg,
+                     table_ops=table_ops, **kw)
+
+    # warm both paths at the largest tier: every game starts crowded
+    # (5 empty cells), so all 4 * SEARCH_GAMES roots enter the tree
+    crowded = np.array([[1, 2, 3, 4], [5, 6, 7, 8], [1, 2, 3, 0],
+                        [0, 0, 0, 0]], np.int8)
+    for table_ops in ("auto", "gather"):
+        play(table_ops, game_init=crowded, step_cap=32, steps_per_call=32)
+
+    counters = (kernels.eval_class, kernels.grad_class, kernels.fold_class)
+    for c in counters:
+        c.launches = 0
+    r_kernel = play("auto")
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    if launches["eval_class"] == 0:
+        raise AssertionError("the search path never launched eval_class")
+    r_gather = play("gather")
+    if kernels.eval_class.launches != launches["eval_class"]:
+        raise AssertionError("the gather search run launched eval_class")
+    # the timed runs in ABBA order: kernel, gather, gather, kernel
+    r_gather2 = play("gather")
+    r_kernel2 = play("auto")
+    for r in (r_gather, r_gather2, r_kernel2):
+        _check_same_games(r_kernel, r, "search")
+    _check_replay(r_kernel, "search")
+    odos = r_kernel.odometers
+    if odos.min() <= 0 or odos.max() >= 32768:
+        raise AssertionError("not every search game was played to its end")
+    stats = r_kernel.search_stats
+    tree_steps = stats["steps"] - stats["tiers"][0]
+    if tree_steps <= 0:
+        raise AssertionError("no step of the search run entered the tree")
+    moves = int(odos.sum())
+    _line("search", games=SEARCH_GAMES, n=ts.n, depth=scfg.depth,
+          width=scfg.width, since_empty=scfg.since_empty,
+          avg_score=float(r_kernel.scores.mean()), total_moves=moves,
+          max_moves=int(odos.max()), steps=stats["steps"],
+          tier_histogram=stats["tiers"], tree_steps=tree_steps,
+          chunks=stats["chunks"],
+          chunks_per_tree_step=stats["chunks"] / tree_steps,
+          launches=launches,
+          eval_class_launches_per_step=launches["eval_class"] / stats["steps"],
+          elapsed_s=r_kernel.elapsed,
+          ms_per_step=1e3 * r_kernel.elapsed / stats["steps"],
+          abba_ms_per_move=[1e3 * r.elapsed / moves for r in
+                            (r_kernel, r_gather, r_gather2, r_kernel2)],
+          ms_per_move=1e3 * (r_kernel.elapsed + r_kernel2.elapsed)
+          / (2 * moves),
+          gather_ms_per_move=1e3 * (r_gather.elapsed + r_gather2.elapsed)
+          / (2 * moves),
+          kernel_equals_gather=True, best_game_replays=True)
+    return launches["eval_class"], check
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -478,6 +607,8 @@ def main() -> int:
     kstats["fold_class"] = phase_fold_class()
     phase_train_step()
     train = phase_train("smoke")
+    search, search_check = phase_search()
+    kstats["eval_class"]["search_check"] = search_check
     if "jax" in sys.modules:
         raise AssertionError("the port loaded jax")
     replaces = {
@@ -490,9 +621,11 @@ def main() -> int:
         "route": "cuda",
         "source": f"tpu2048_torch/ops/csrc/{k}.cu",
         "replaces": replaces[k],
-        "launches": train[k] + (serve if k == "eval_class" else 0),
+        "launches": train[k] + (serve + search if k == "eval_class"
+                                else 0),
         "launches_by_path": {"serve": serve if k == "eval_class" else 0,
-                             "train": train[k]},
+                             "train": train[k],
+                             "search": search if k == "eval_class" else 0},
         **kstats[k],
     } for k in replaces]}), flush=True)
     print(json.dumps({"ok": True, "device": {

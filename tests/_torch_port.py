@@ -9,7 +9,11 @@ same games from the same draws as ``tpu2048``:
   * per step ``key, k_est, k_spawn = split(key, 3)`` (``trial.py:85``);
     the random policy draws ``uniform(k_est, (4, n))`` and
     ``spawn_codes`` draws from ``ku, kv = split(k_spawn)``
-    (``fast.py:261-269``).
+    (``fast.py:261-269``);
+  * the search estimator takes ``k_est`` (``trial.py:130``) as a
+    ``JaxSearchKey``: a chunked root batch splits it
+    (``expectimax.py:234``), and each tree level draws from
+    ``split(fold_in(key, depth))`` (``:151``, ``:112-119``).
 
 ``JaxTrainDraws`` replays the train step's schedule likewise.
 """
@@ -57,6 +61,34 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
+@partial(jax.jit, static_argnums=(1, 2, 3))
+def _level(key, depth, b, width):
+    k_spawn, k_rec = jax.random.split(jax.random.fold_in(key, depth))
+    kp, kv = jax.random.split(k_spawn)
+    noise = jax.random.uniform(kp, (b, 16), minval=1e-6, maxval=1.0)
+    return noise, jax.random.uniform(kv, (b, width)), k_rec
+
+
+@partial(jax.jit, static_argnums=1)
+def _split_n(key, n):
+    return jax.random.split(key, n)
+
+
+class JaxSearchKey:
+    """A search key (``tpu2048_torch.draws.SearchKey``) that replays
+    the reference tree's draws from the JAX key ``key``."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def chunks(self, n: int):
+        return [JaxSearchKey(k) for k in _split_n(self.key, n)]
+
+    def level(self, depth: int, b: int, width: int):
+        noise, u, k_rec = _level(self.key, depth, b, width)
+        return _t(noise), _t(u), JaxSearchKey(k_rec)
+
+
 class JaxDraws:
     """Replays the reference trial's draws from ``PRNGKey(seed)``.
     ``k_init``, ``k_est`` and ``k_spawn`` may also be set directly to
@@ -78,6 +110,9 @@ class JaxDraws:
     def new(self, n: int):
         return tuple(_t(a).to(torch.int32) if a.dtype != np.float32
                      else _t(a) for a in _new_draws(self.k_init, n))
+
+    def search(self):
+        return JaxSearchKey(self.k_est)
 
 
 @jax.jit

@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card: ``eval_class``, ``grad_class``
 and ``fold_class`` against their plain PyTorch versions, the serving
-slice through the kernel against the same slice through plain
-gathers, and one train step through the kernels against the same step
-on the CPU through the plain versions.
+slice and the expectimax search through the kernel against the same
+games through plain gathers, and one train step through the kernels
+against the same step on the CPU through the plain versions.
 
 Every test here needs a CUDA card and skips without one.  The file
 imports no jax, so on a machine without it the tests run with
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu2048.config import AgentConfig, TrainConfig
+from tpu2048.config import AgentConfig, SearchConfig, TrainConfig
 from tpu2048_torch.agent import td
 from tpu2048_torch.draws import NumpyDraws
 from tpu2048_torch.features.ntuple import get_tuple_set
@@ -58,6 +58,40 @@ def test_eval_class_kernel_matches_plain(g, h, l, b, precision):
     scale = ref_t[gi, hi.long(), lo.long()].abs().sum(dim=-1)
     # f32 summation order only: within 2^-20 of sum |terms|
     assert bool(((got - want).abs() <= 2.0**-20 * scale).all())
+
+
+def test_eval_class_bf16_at_search_tree_scale():
+    """B = 2,000,000 rows, one chunk of the depth-3 / width-4 search
+    tree's leaves, through the (17, 256, 256) class in "bf16"."""
+    dev = needs_card()
+    tables, hi, lo = _inputs(17, 256, 256, 2_000_000, seed=11, dev=dev)
+    got = kernels.eval_class(tables, hi, lo, "bf16")
+    want = kernels.eval_class_reference(tables, hi, lo, "bf16")
+    gi = torch.arange(17, device=dev)
+    scale = tables.to(torch.bfloat16).float()[gi, hi.long(), lo.long()
+                                               ].abs().sum(dim=-1)
+    assert bool(((got - want).abs() <= 2.0**-20 * scale).all())
+
+
+def test_search_trial_kernel_equals_gather_on_card():
+    """Depth-2 / width-2 search of 8 n=5 games: the tree's values
+    through the kernel in bf16 ("auto" is "search" on the card) and
+    through plain gathers; dyadic weights are exact in bf16, so the
+    games are the same."""
+    dev = needs_card()
+    ts = get_tuple_set(5)
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(
+        (rng.integers(0, 41, ts.total) * 2.0**-12).astype(np.float32)).to(dev)
+    scfg = SearchConfig(depth=2, width=2, since_empty=6)
+    before = kernels.eval_class.launches
+    a = trial(ts, w, num=8, seed=4, search=scfg, step_cap=2048)
+    assert kernels.eval_class.launches > before
+    assert a.search_stats["chunks"] > 0
+    b = trial(ts, w, num=8, seed=4, search=scfg, step_cap=2048,
+              table_ops="gather")
+    for name in ("scores", "odometers", "final_boards"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
 
 
 def test_eval_class_kernel_flags_bad_index():

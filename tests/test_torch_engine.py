@@ -151,3 +151,91 @@ def test_torch_draws_ranges():
     cells = tfast.cells_from_codes(tfast.new_codes(4096, d))
     assert ((cells > 0).sum(dim=1) == 2).all()
     assert set(cells.unique().tolist()) == {0, 1, 2}
+
+
+# -- the cells engine (engine/core.py) --------------------------------------
+
+
+def _cells_pair(seed, n=128):
+    boards = rand_boards(n, seed, high=14)
+    return boards, torch.from_numpy(boards), jnp.asarray(boards)
+
+
+def test_pack_rows_and_max_tile_equal():
+    _, tb, jb = _cells_pair(20)
+    _eq(tcore.pack_rows(tb), jcore.pack_rows(jb))
+    _eq(tcore.max_tile(tb), jcore.max_tile(jb))
+
+
+@pytest.mark.parametrize("direction", [0, 1, 2, 3])
+def test_move_equal(direction):
+    _, tb, jb = _cells_pair(21 + direction)
+    for g, w in zip(tcore.move(tb, direction), jcore.move(jb, direction)):
+        _eq(g, w)
+
+
+def test_afterstates_and_is_terminal_equal():
+    boards, tb, jb = _cells_pair(25)
+    # dead boards: a checkerboard of 1/2 and a full board of distinct tiles
+    boards[2] = np.indices((4, 4)).sum(axis=0) % 2 + 1
+    boards[3] = np.arange(1, 17).reshape(4, 4) % 15 + 1
+    tb, jb = torch.from_numpy(boards), jnp.asarray(boards)
+    for g, w in zip(tcore.afterstates(tb), jcore.afterstates(jb)):
+        _eq(g, w)
+    term = tcore.is_terminal(tb)
+    _eq(term, jcore.is_terminal(jb))
+    assert bool(term[2]) and bool(term[3]) and not bool(term[1])
+    # "no legal move" is the same test, but for the empty board 1
+    nolegal = ~tcore.afterstates(tb)[2].any(dim=0)
+    assert bool(nolegal[1]) and not bool(term[1])
+    _eq(term[2:], nolegal[2:].numpy())
+
+
+@pytest.mark.parametrize("seed", [26, 27])
+def test_spawn_equal_with_jax_draws(seed):
+    _, tb, jb = _cells_pair(seed, 256)
+    key = jax.random.PRNGKey(seed)
+    draws = JaxDraws()
+    draws.k_spawn = key
+    for g, w in zip(tcore.spawn(tb, draws), jcore.spawn(jb, key)):
+        _eq(g, w)
+
+
+def test_new_boards_init_and_reset_where_equal_with_jax_draws():
+    key = jax.random.PRNGKey(28)
+    draws = JaxDraws()
+    draws.k_init = key
+    _eq(tcore.new_boards(1000, draws), jcore.new_boards(1000, key))
+    env = tcore.init_env(64, draws)
+    for g, w in zip(env, jcore.init_env(64, key)):
+        _eq(g, w)
+    # the reset draws its fresh boards for the whole batch (the train
+    # step's ``k_reset`` site, as in ``reset_where_codes``)
+    tdraws = JaxTrainDraws(key)
+    tdraws.split()
+    rng = np.random.default_rng(28)
+    done = rng.random(64) < 0.4
+    state = tcore.EnvState(env.boards, env.score + 7, env.odometer + 3)
+    got = tcore.reset_where(state, torch.from_numpy(done), tdraws)
+    want = jcore.reset_where(
+        jcore.EnvState(*(jnp.asarray(t.numpy()) for t in state)),
+        jnp.asarray(done), tdraws.k_reset)
+    for g, w in zip(got, want):
+        _eq(g, w)
+    assert (got.score.numpy()[done] == 0).all()
+
+
+def test_afterstates_nc_equal_and_agrees_with_full():
+    _, codes = _codes(29, 128)
+    # search children whose masked spawn carried out of the row's 16
+    # bits: JAX clamps the gather index
+    codes[:4, 0] += 0x10000 * np.arange(1, 5, dtype=np.int32)
+    got = tfast.afterstates_nc(torch.from_numpy(codes))
+    want = jfast.afterstates_nc(jnp.asarray(codes))
+    for g, w in zip(got, want):
+        _eq(g, w)
+    aft, _delta, legal, tcodes = tfast.afterstates_full(
+        torch.from_numpy(codes[4:]))
+    _eq(got[0][:, 4:], aft.numpy())
+    _eq(got[1][:, 4:], legal.numpy())
+    _eq(got[2][4:], tcodes.numpy())

@@ -128,6 +128,18 @@ def test_to_dense_table_bitwise_n5():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_from_dense_table_bitwise_n5():
+    ts = jnt.get_tuple_set(5)
+    w = np.random.default_rng(8).standard_normal(ts.total).astype(np.float32)
+    want = np.asarray(jcanon.from_dense_table(ts, jnp.asarray(w)))
+    got = tcanon.from_dense_table(tnt.get_tuple_set(5), torch.from_numpy(w))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the inverse of to_dense_table on an orbit-constant table
+    back = tcanon.from_dense_table(
+        tnt.get_tuple_set(5), tcanon.to_dense_table(tnt.get_tuple_set(5), got))
+    np.testing.assert_allclose(back.numpy(), want, rtol=2.0**-20, atol=0)
+
+
 def test_init_weights_range():
     ts = tnt.get_tuple_set(3)
     gen = torch.Generator()

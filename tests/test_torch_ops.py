@@ -106,11 +106,40 @@ def test_resolve_mode():
     assert tdisp.resolve_mode("auto", cpu) == "gather"
     assert tdisp.resolve_mode("auto", cuda) == "pallas"
     assert tdisp.resolve_mode("pallas", cpu) == "pallas"
-    for mode in ("search", "onehot"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdisp.make_evaluator(jnt.get_tuple_set(2), mode)
+    # "search" resolves as the reference resolves it on and off the TPU
+    assert tdisp.resolve_mode("search", cpu) == "gather"
+    assert tdisp.resolve_mode("search", cuda) == "search"
+    # ... and is "pallas" to the train-side functions
+    assert tdisp.uses_kernels("search", cuda)
+    assert not tdisp.uses_kernels("search", cpu)
+    assert tdisp.uses_kernels("pallas", cpu)
+    assert not tdisp.uses_kernels("auto", cpu)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdisp.make_evaluator(jnt.get_tuple_set(2), "onehot")
     with pytest.raises(ValueError):
         tdisp.make_evaluator(jnt.get_tuple_set(2), "bogus")
+
+
+def test_search_evaluators_on_cpu_match_jax_n5():
+    """Off the card "search" is "gather": the evaluator equals JAX's
+    "search" evaluator (gather off the TPU), and the train evaluator
+    equals its own "gather" form, bitwise with dyadic weights."""
+    ts = jnt.get_tuple_set(5)
+    w = dyadic_weights(ts.total, seed=7)
+    boards = rand_boards(2 * 40, seed=7).reshape(2, 40, 16)
+    want = np.asarray(jdisp.make_evaluator(ts, "search")(
+        jnp.asarray(w), jnp.asarray(boards)))
+    tw, tb = torch.from_numpy(w), torch.from_numpy(boards)
+    tts = tnt.get_tuple_set(5)
+    np.testing.assert_array_equal(
+        tdisp.make_evaluator(tts, "search")(tw, tb).numpy(), want)
+    got = tdisp.make_train_evaluator(tts, "search", canonical=True)(tw, tb)
+    ref = tdisp.make_train_evaluator(tts, "gather", canonical=True)(tw, tb)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    np.testing.assert_array_equal(
+        tdisp.make_mxu_eval_idx(tts, "search")(tw, got[2].reshape(80, -1))
+        .numpy(), got[0].reshape(80).numpy())
 
 
 @pytest.mark.parametrize("mode", ["gather", "pallas", "auto"])

@@ -1,15 +1,19 @@
 """The port's ``Trainer`` on CPU: a short n=4 run, its ma-100 history
-and best game, and checkpoints that cross between the two packages in
-both directions."""
+and best game, checkpoints that cross between the two packages in
+both directions, and a resume that changes the table's
+representation."""
 
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tpu2048.config import AgentConfig, TrainConfig
+from tpu2048.features import canonical as jcanon
+from tpu2048.features import ntuple as jnt
 from tpu2048.obs.logging import Logger
 from tpu2048.obs.metrics import train_history
 from tpu2048.store import checkpoint as ckpt
@@ -133,8 +137,49 @@ def test_unported_trainer_options_raise(what):
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             tr.run(trace_dir="/nonexistent")
     else:
-        dense = dataclasses.replace(ACFG, sym_impl="fold")
-        ckpt.save_agent(store, "x", dense,
+        # a canonical agent converts into a dense table, whose training
+        # (sym_impl="fold") is not ported
+        ckpt.save_agent(store, "x", ACFG,
                         np.zeros(get_tuple_set(4).total, np.float32))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            Trainer("x", ACFG, TCFG, store=store, resume=True, device="cpu")
+        dense = dataclasses.replace(ACFG, sym_impl="fold")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+            Trainer("x", dense, TCFG, store=store, resume=True, device="cpu")
+
+
+class _Once:
+    """A job that lets the trainer run one segment."""
+
+    left = 1
+
+    def should_stop(self):
+        self.left -= 1
+        return self.left < 0
+
+
+def test_dense_checkpoint_resumes_canonical():
+    """A dense n=5 agent (``sym_impl="fold"``) saved by the reference
+    with its TC extras resumes in the port as ``AgentConfig()``: the
+    weights and both extras are JAX's ``from_dense_table`` of the saved
+    arrays, bitwise, and a segment trains from them."""
+    ts = jnt.get_tuple_set(5)
+    rng = np.random.default_rng(9)
+    w, e, a = (rng.standard_normal(ts.total).astype(np.float32)
+               for _ in range(3))
+    a = np.abs(a)
+    store = MemoryStore()
+    ckpt.save_agent(store, "d", AgentConfig(sym_impl="fold"), w,
+                    {"episodes": 40, "train_history": [5]},
+                    extras={"opt_e": e, "opt_a": a})
+    tcfg = dataclasses.replace(TCFG, episodes=1000)
+    tr = Trainer("d", AgentConfig(), tcfg, store=store, logger=_quiet(),
+                 resume=True, device="cpu")
+    for name, arr in (("weights", w), ("opt_e", e), ("opt_a", a)):
+        want = np.asarray(jcanon.from_dense_table(ts, jnp.asarray(arr)))
+        np.testing.assert_array_equal(getattr(tr.state, name).numpy(), want,
+                                      err_msg=name)
+    assert int(tr.state.metrics.episodes) == 40
+    before = tr.state.weights.clone()
+    tr.run(job=_Once())
+    assert int(tr.state.env.odometer.max()) == tcfg.steps_per_call
+    assert bool(torch.isfinite(tr.state.weights).all())
+    assert not torch.equal(tr.state.weights, before)

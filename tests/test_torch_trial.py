@@ -1,7 +1,7 @@
 """The port's serving slice against the JAX reference: ``trial`` at the
-full n=5 width with JAX's draws fed to the port, and the checkpoint
-path of a canonical agent, both bitwise; plus the port's freedom from
-jax."""
+full n=5 width with JAX's draws fed to the port, greedy and with
+depth-2 expectimax, and the checkpoint path of a canonical agent, all
+bitwise; plus the port's freedom from jax."""
 
 import os
 import subprocess
@@ -26,7 +26,7 @@ from tpu2048_torch.train import trial as ttrial
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _run_both(policy, w, seed, **kw):
+def _run_both(policy, w, seed, n=5, **kw):
     """The same trial in both packages, JAX's draws fed to the port;
     returns both results and both final states (logs included)."""
     states = {}
@@ -34,11 +34,12 @@ def _run_both(policy, w, seed, **kw):
     def grab(key):
         return lambda st: states.__setitem__(key, st)
 
-    kw = dict(num=32, seed=seed, steps_per_call=64, policy=policy, **kw)
-    want = jax_trial(jnt.get_tuple_set(5),
+    kw = {"num": 32, "steps_per_call": 64, **kw, "seed": seed,
+          "policy": policy}
+    want = jax_trial(jnt.get_tuple_set(n),
                      None if w is None else jnp.asarray(w),
                      progress_cb=grab("jax"), **kw)
-    got = ttrial.trial(tnt.get_tuple_set(5),
+    got = ttrial.trial(tnt.get_tuple_set(n),
                        None if w is None else torch.from_numpy(w),
                        draws=JaxDraws(seed), progress_cb=grab("torch"), **kw)
     return got, want, states["torch"], states["jax"]
@@ -86,10 +87,25 @@ def test_trial_game_init_and_limit_tile_match_jax_n5():
     _assert_same(got, want, st, sj, 2048)
 
 
-def test_trial_rejects_search_depth():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrial.trial(tnt.get_tuple_set(2), None, num=2,
-                     search=SearchConfig(depth=1), policy="score")
+@pytest.mark.parametrize("n", [2, 5])
+def test_trial_search_matches_jax(n):
+    """Depth-2, width-2 expectimax ("auto" promoted to "search", which
+    is "gather" on the CPU in both packages) with JAX's draws, the
+    tree's included: every game bitwise."""
+    w = dyadic_weights(jnt.get_tuple_set(n).total, seed=6)
+    scfg = SearchConfig(depth=2, width=2, since_empty=6)
+    got, want, st, sj = _run_both("value", w, seed=5, n=n, num=8,
+                                  step_cap=512, search=scfg)
+    assert got.odometers.min() > 0
+    _assert_same(got, want, st, sj, 512)
+    stats = got.search_stats
+    # one tier choice per step; the 32 roots fit no smaller tier
+    assert set(stats["tiers"]) == {0, 32}
+    assert sum(stats["tiers"].values()) == stats["steps"]
+    assert stats["tiers"][32] > 0 and stats["chunks"] == stats["tiers"][32]
+    assert "upper bound" in got.report and "(lower bound)" in got.report
+    # 4 root afterstates + 4 * width * (4 + 4 * width * 4) per move
+    assert f"({4 + 4 * 2 * (4 + 4 * 2 * 4)} per move" in got.report
 
 
 @pytest.mark.parametrize("canonical", [True, False])
@@ -117,7 +133,8 @@ def test_port_imports_no_jax():
         import tpu2048_torch.store.checkpoint
         import tpu2048_torch.agent.td
         import tpu2048_torch.train.loop
-        from tpu2048.config import AgentConfig, TrainConfig
+        import tpu2048_torch.search.expectimax
+        from tpu2048.config import AgentConfig, SearchConfig, TrainConfig
         from tpu2048.obs.logging import Logger
         from tpu2048_torch.features import ntuple
         from tpu2048_torch.train.loop import Trainer
@@ -128,6 +145,10 @@ def test_port_imports_no_jax():
         r = trial(ts, ntuple.init_weights(ts, g), num=4, seed=0,
                   steps_per_call=64)
         assert r.odometers.min() > 0
+        r = trial(ts, ntuple.init_weights(ts, g), num=2, seed=0,
+                  steps_per_call=8, step_cap=32,
+                  search=SearchConfig(depth=1, width=2, since_empty=16))
+        assert r.search_stats["tiers"][8] > 0
         class Once:
             left = 1
             def should_stop(self):

@@ -226,7 +226,8 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     "auto" takes the CUDA kernels (``eval_class``, ``grad_class``,
     ``fold_class``) on the card and plain torch elsewhere; "pallas"
     takes the kernels' wrappers on any device (their plain versions on
-    CPU tensors); "gather" takes plain torch everywhere."""
+    CPU tensors); "search" is "pallas" on the card and "gather"
+    elsewhere; "gather" takes plain torch everywhere."""
     _check_supported(acfg)
     num_feat = ts.num_feat
     ring = tcfg.ring_size
@@ -241,8 +242,7 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     mxu_exact = table_dispatch.make_mxu_eval_idx(ts, acfg.table_ops)
 
     def fold(c, pair):
-        if table_dispatch.resolve_mode(acfg.table_ops,
-                                       pair.device) == "pallas":
+        if table_dispatch.uses_kernels(acfg.table_ops, pair.device):
             return kernels.fold_class(ts, c.feat0, c.g, pair)
         return symmetrize_class_sum(ts, c.feat0, c.g, pair)
 

@@ -2,10 +2,11 @@
 
 The JAX reference draws from threefry keys split on a fixed schedule
 (``tpu2048/train/trial.py:200-201, :85``; the train step's
-``tpu2048/agent/td.py:195``, ``:201`` and ``:400``); torch generators
-have no twin of that.  So the port's engine, trial and train step
-never draw for themselves: they ask a draw source, through methods
-named after the reference's draw sites.
+``tpu2048/agent/td.py:195``, ``:201`` and ``:400``; the search tree's
+``tpu2048/search/expectimax.py:151``, ``:234``); torch generators
+have no twin of that.  So the port's engine, trial, search and train
+step never draw for themselves: they ask a draw source, through
+methods named after the reference's draw sites.
 
 ``TorchDraws`` serves production from one ``torch.Generator``.  A
 test can pass a source that replays the reference's own key schedule,
@@ -16,12 +17,32 @@ the card and a run on the CPU can be fed identical draws.
 
 from __future__ import annotations
 
-from typing import Protocol, Tuple
+from typing import List, Protocol, Tuple
 
 import numpy as np
 import torch
 
 NewDraws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+# the Gumbel noise's range (expectimax.py:113): no empty cell scores 0
+NOISE_MIN = 1e-6
+
+
+class SearchKey(Protocol):
+    """The draws of one expectimax tree, in the shape of the
+    reference's key: a tree level or a chunk of roots gets its own
+    key, derived from its parent's."""
+
+    def chunks(self, n: int) -> List["SearchKey"]:
+        """One key per chunk of a chunked root batch
+        (``split(key, chunks)``)."""
+
+    def level(self, depth: int, b: int, width: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, "SearchKey"]:
+        """The spawn draws of the tree level at ``depth`` over ``b``
+        boards, and the key of the level below: ``k_spawn, k_rec =
+        split(fold_in(key, depth))``, ``kp, kv = split(k_spawn)``;
+        returns (Gumbel noise (b, 16) f32 in [1e-6, 1) from ``kp``,
+        tile-value uniforms (b, width) f32 from ``kv``, ``k_rec``)."""
 
 
 class Draws(Protocol):
@@ -47,8 +68,28 @@ class Draws(Protocol):
         """f32 uniforms of ``shape``: the random-baseline policy of
         trial, and the initial weight table of a fresh train state."""
 
+    def search(self) -> SearchKey:
+        """The key of this step's expectimax estimator (trial's
+        ``k_est``)."""
 
-class TorchDraws:
+
+class _OneStream:
+    """A search key for a source with one stream: every chunk and
+    level draws next from the same stream, so the key is the source.
+    Subclasses give ``uniform``."""
+
+    def search(self) -> "_OneStream":
+        return self
+
+    def chunks(self, n: int) -> List["_OneStream"]:
+        return [self] * n
+
+    def level(self, depth: int, b: int, width: int):
+        noise = self.uniform((b, 16)) * (1.0 - NOISE_MIN) + NOISE_MIN
+        return noise, self.uniform((b, width)), self
+
+
+class TorchDraws(_OneStream):
     """Draws from one ``torch.Generator``, on the generator's device.
 
     One stream serves every draw site, so ``split`` has nothing to do.
@@ -79,7 +120,7 @@ class TorchDraws:
     reset = new
 
 
-class NumpyDraws:
+class NumpyDraws(_OneStream):
     """Draws from a seeded ``numpy`` generator, as tensors on
     ``device``: the same numbers whatever the device.  Each call copies
     from host memory, which synchronises a CUDA stream, so this source

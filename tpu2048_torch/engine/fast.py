@@ -132,6 +132,35 @@ def afterstates_full(
     return aft, delta, legal, tcodes
 
 
+@lru_cache(maxsize=None)
+def _nc_pair(device: torch.device) -> torch.Tensor:
+    """The (65536, 2) [left_nc, right_nc] table on ``device``."""
+    t = build_code_tables()
+    return torch.from_numpy(np.stack([t.left_nc, t.right_nc], axis=1)
+                            ).to(device)
+
+
+def afterstates_nc(
+    codes: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """All 4 afterstates of a (N, 4) code batch, without scores:
+    (aft (4, N, 4) int32, legal (4, N) bool, tcodes (N, 4)); directions
+    1 and 3 TRANSPOSED, as in ``afterstates_full``.
+
+    One gather of an 8-byte [left_nc, right_nc] row per row code of the
+    codes and their transpose: the 16 lookups per board of the
+    reference.  A code above 0xFFFF (a search child whose masked spawn
+    slot carried out of its row, ``search/expectimax.py``) reads row
+    0xFFFF, as JAX's clamped gather does."""
+    n = codes.shape[0]
+    tcodes = transpose_codes(codes)
+    both = torch.stack([codes.clamp(max=0xFFFF), tcodes])
+    nc = _nc_pair(codes.device)[both]  # (2 orientations, N, 4 rows, 2)
+    aft = (nc & 0xFFFF).permute(3, 0, 1, 2).reshape(4, n, 4)
+    legal = (nc >> 16).any(dim=2).permute(2, 0, 1).reshape(4, n)
+    return aft, legal, tcodes
+
+
 def canonicalize_chosen(aft_codes: torch.Tensor, best_dir: torch.Tensor
                         ) -> torch.Tensor:
     """Transpose the chosen afterstate back when it came from up/down."""

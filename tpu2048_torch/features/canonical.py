@@ -5,8 +5,9 @@ An agent trained with ``sym_impl="canonical"`` stores one
 representative entry per D4 orbit of its large gather-path classes
 (the orbit-minimal index).  Serving reads either the canonical table
 through canonical indices (``canonical_gather_indices``) or its dense,
-orbit-constant expansion (``to_dense_table``).  The numpy table
-builders are verbatim copies of the reference's.
+orbit-constant expansion (``to_dense_table``); ``from_dense_table``
+projects a dense table back.  The numpy table builders are verbatim
+copies of the reference's.
 """
 
 from __future__ import annotations
@@ -160,3 +161,22 @@ def to_dense_table(ts: TupleSet, w_canonical: torch.Tensor) -> torch.Tensor:
     den = symmetrize_sum(ts, ind)
     dense_g = num / den.clamp(min=1.0)
     return torch.where(region, dense_g, w_canonical)
+
+
+def from_dense_table(ts: TupleSet, w_dense: torch.Tensor) -> torch.Tensor:
+    """Project a dense table into canonical form, on the table's
+    device: orbit-average the gather classes and keep the canonical
+    representative, zero elsewhere (the exact inverse of
+    ``to_dense_table`` for orbit-constant tables; the D4 projection of
+    any other).  The matmul classes pass through unchanged.  The same
+    operations in the same order as the reference, so the result is
+    bitwise its."""
+    if not len(_gather_feat_ids(ts.n)):
+        return w_dense
+    device = w_dense.device
+    region = torch.from_numpy(_gather_region(ts.n)).to(device)
+    region_f = region.to(torch.float32)
+    ind = torch.from_numpy(canonical_mask(ts)).to(device).to(torch.float32)
+    num = symmetrize_sum(ts, w_dense * region_f)
+    canon_g = (num / 8.0) * (ind * region_f)
+    return torch.where(region, canon_g, w_dense)

@@ -6,16 +6,20 @@
             (its plain version on CPU tensors) and plain gathers for
             the larger classes — the reference's name for its fused
             kernel path, kept so that configs carry over;
+  "search": the search tree's evaluator: the ``eval_class`` kernel in
+            single-pass "bf16" for the 16^2..16^4 classes and exact f32
+            gathers for the larger classes on CUDA tensors, "gather"
+            elsewhere; the train-side functions take it as "pallas";
   "auto":   "pallas" for CUDA tensors, "gather" elsewhere, as the
             reference resolves it on and off the TPU.
 
-Both paths give the same values up to f32 summation order.  The
+"gather" and "pallas" give the same values up to f32 summation order;
+"search" reads the small classes' weights rounded to bf16.  The
 train step's table ops live here too: the evaluator that also returns
 its indices (``make_train_evaluator``), the exact re-evaluation of the
 chosen afterstate (``make_mxu_eval_idx``) and the per-class gradient
 blocks (``make_class_grads``, the ``grad_class`` kernel on "pallas").
-The reference's "search" mode is not ported yet; its "onehot" mode is
-a TPU workaround and will not be.
+The reference's "onehot" mode is a TPU workaround and is not ported.
 """
 
 from __future__ import annotations
@@ -30,22 +34,29 @@ from . import kernels
 from . import onehot as oh
 
 _NOT_PORTED = {
-    "search": 'not ported yet: it waits for the ROADMAP item "Search + '
-              'expectimax"',
     "onehot": 'not ported: the ROADMAP lists one-hot matmuls under "Not '
               'ported" (a TPU workaround); use "pallas"',
 }
 
 
 def resolve_mode(mode: str, device: torch.device) -> str:
-    """"auto" -> "pallas" on CUDA tensors, "gather" elsewhere."""
+    """"auto" -> "pallas" on CUDA tensors, "gather" elsewhere;
+    "search" -> "search" on CUDA tensors, "gather" elsewhere."""
     if mode in _NOT_PORTED:
         raise NotImplementedError(f"table_ops={mode!r} is {_NOT_PORTED[mode]}")
     if mode == "auto":
         return "pallas" if device.type == "cuda" else "gather"
+    if mode == "search":
+        return "search" if device.type == "cuda" else "gather"
     if mode not in ("gather", "pallas"):
         raise ValueError(f"unknown table op mode: {mode}")
     return mode
+
+
+def uses_kernels(mode: str, device: torch.device) -> bool:
+    """True when ``mode`` takes the kernels' wrappers on ``device``
+    ("search" is "pallas" to the train-side functions)."""
+    return resolve_mode(mode, device) in ("pallas", "search")
 
 
 def _gather_class_values(ts, weights, flat_boards, idx2,
@@ -75,12 +86,12 @@ def _matmul_class_values(ts: TupleSet, classes: oh.TableClasses,
                          ) -> torch.Tensor:
     """Sum of the 16^2..16^4 classes' weights at the (B, F) feature
     indices ``idx2``, (B,) f32: the ``eval_class`` kernel at
-    ``precision`` on "pallas", plain f32 gathers on "gather" (where
-    the reference, too, ignores the precision)."""
+    ``precision`` on "pallas" and "search", plain f32 gathers on
+    "gather" (where the reference, too, ignores the precision)."""
     total = torch.zeros(idx2.shape[0], dtype=torch.float32,
                         device=weights.device)
     for c in classes.matmul:
-        if resolved == "pallas":
+        if resolved in ("pallas", "search"):
             hi, lo = oh._hi_lo(ts, idx2, c)
             v = kernels.eval_class(oh._class_tables(weights, c), hi, lo,
                                    precision)
@@ -110,7 +121,9 @@ def make_evaluator(ts: TupleSet, mode: str, canonical: bool = False
         resolved = resolve_mode(mode, weights.device)
         if resolved == "gather" and not canonical:
             return weights[idx2].sum(dim=-1).reshape(shape)
-        total = _matmul_class_values(ts, classes, weights, idx2, resolved)
+        total = _matmul_class_values(
+            ts, classes, weights, idx2, resolved,
+            "bf16" if resolved == "search" else "bf16x2")
         if len(classes.gather_feats):
             total = total + _gather_class_values(
                 ts, weights, flat_boards, idx2, canonical
@@ -130,14 +143,15 @@ def make_train_evaluator(ts: TupleSet, mode: str, canonical: bool = False,
         (mxu (...,), gth (...,), idx (..., F), cidx (..., K) | None,
          mult (..., K) | None):
     ``mxu`` is the 16^2..16^4 classes' part, at ``precision`` (default
-    "bf16x2"; "bf16" for the selection pass of
+    "bf16x2", "bf16" under "search"; "bf16" for the selection pass of
     ``AgentConfig.actor_precision="bf16"``), and ``gth`` the larger
     classes' part, exact f32 gathers at canonical-orbit indices when
     ``canonical``.
     """
     resolve_mode(mode, torch.device("cpu"))  # reject bad modes now
     classes = oh.build_table_classes(ts)
-    precision = precision or "bf16x2"
+    if precision is None:
+        precision = "bf16" if mode == "search" else "bf16x2"
     if canonical:
         from ..features.canonical import canonical_gather_indices
 
@@ -195,8 +209,7 @@ def make_class_grads(ts: TupleSet, mode: str
 
     def fn(idx: torch.Tensor, dw: torch.Tensor, valid: torch.Tensor
            ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        grads = (kernels.grad_class
-                 if resolve_mode(mode, idx.device) == "pallas"
+        grads = (kernels.grad_class if uses_kernels(mode, idx.device)
                  else kernels.grad_class_reference)
         out = []
         for c in classes.matmul:

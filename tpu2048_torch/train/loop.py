@@ -7,9 +7,11 @@ best-game saving, cooperative cancellation.  The hot loop is one
 K-step train segment over N lockstep envs; the host reads the
 device-resident metrics between segments.
 
-Not ported yet: a device mesh (``mesh=``, ROADMAP.md Queue 1 item 5),
-a profiler trace (``trace_dir=``, item 6), and a resume that changes
-the table's representation (needs ``from_dense_table``, item 1).
+A resume may change the table's representation (canonical-orbit vs
+dense): the weights and every extra of their shape are converted.
+
+Not ported yet: a device mesh (``mesh=``, ROADMAP.md Queue 1 item 5)
+and a profiler trace (``trace_dir=``, item 6).
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from tpu2048.store.artifacts import ArtifactStore
 from ..agent import td
 from ..draws import TorchDraws
 from ..engine import core as engine
-from ..features.canonical import is_canonical
+from ..features.canonical import (from_dense_table, is_canonical,
+                                  to_dense_table)
 from ..features.ntuple import get_tuple_set
 
 TILE_NAMES = [1 << e for e in range(10, 17)]  # 1024 .. 65536
@@ -100,12 +103,20 @@ class Trainer:
                 raise ValueError(
                     f"agent '{name}' has n={loaded_cfg.n}, requested n={acfg.n}"
                 )
-            if is_canonical(loaded_cfg) != is_canonical(acfg):
-                raise NotImplementedError(
-                    "a resume that changes the table's representation "
-                    "(canonical-orbit vs dense) needs from_dense_table, "
-                    "which waits for ROADMAP.md Queue 1 item 1")
             weights = torch.from_numpy(np.asarray(w, np.float32))
+            if is_canonical(loaded_cfg) != is_canonical(acfg):
+                # resume-and-retune across representations: convert
+                # the weights and the TC accumulators alike
+                conv = (to_dense_table if is_canonical(loaded_cfg)
+                        else from_dense_table)
+                shape = weights.shape
+                weights = conv(self.ts, weights)
+                if "extras" in meta:
+                    meta = {**meta, "extras": {
+                        k: conv(self.ts, torch.from_numpy(
+                            np.asarray(v, np.float32))).numpy()
+                        if np.shape(v) == shape else v
+                        for k, v in meta["extras"].items()}}
             self.train_history = list(meta.get("train_history", []))
             self._provenance = {k: meta[k] for k in
                                 ("forked_from", "source_episodes") if k in meta}

@@ -3,12 +3,14 @@
 Plays N games with a stored agent, all in lockstep on one device, each
 exactly once (active mask, no auto-reset), with move and spawn logs
 for replay; then reports average score, tile-reach shares, the top-3
-final boards, timing, and the best game as a replayable record.
+final boards, timing, and the best game as a replayable record.  With
+``SearchConfig.depth > 0`` each move's afterstates are valued by
+root-compacted expectimax (``search/expectimax.py``).
 
 The reference rolls ``steps_per_call`` steps into one ``lax.scan``;
 here a segment is a Python loop of the same steps, and the host reads
-the device once per segment.  Greedy play only: expectimax search
-(``SearchConfig.depth > 0``) is not ported yet.
+the device once per segment, and with search once more per step (the
+compacted estimator's tier choice).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ..draws import Draws, TorchDraws
 from ..engine import core as engine
 from ..engine import fast as engf
 from ..features import ntuple
+from ..search.expectimax import make_compacted_estimator
 
 
 class TrialResult(NamedTuple):
@@ -36,6 +39,9 @@ class TrialResult(NamedTuple):
     elapsed: float
     report: str
     best_game: Optional[Dict[str, Any]]  # replayable record
+    # with search: steps per compaction tier (0: no root needed the
+    # tree), tree chunks run, and steps taken
+    search_stats: Optional[Dict[str, Any]] = None
 
 
 class _EvalState(NamedTuple):
@@ -56,19 +62,38 @@ _TPERM = np.arange(16).reshape(4, 4).T.reshape(16)
 def _make_eval_segment(ts, scfg: SearchConfig, n: int, s_cap: int,
                        k: int, limit_tile: int, draws: Draws,
                        table_ops: str = "auto", policy: str = "value"):
-    """A segment: ``k`` greedy steps of the packed row-code engine,
-    updating the state's logs in place."""
+    """A segment: ``k`` steps of the packed row-code engine, updating
+    the state's logs in place.  ``segment.search_stats`` sums the
+    search's counters over the segment's calls (None without search):
+    steps per compaction tier and tree chunks."""
     from ..ops import dispatch as table_dispatch
 
-    if scfg.depth > 0:
-        raise NotImplementedError(
-            "expectimax search is not ported yet (ROADMAP item "
-            '"Search + expectimax"); use SearchConfig(depth=0)'
-        )
+    if table_ops == "auto" and scfg.depth > 0:
+        # the tree values (4 * width)^depth leaves per root: "search"
+        # sends the 16^2..16^4 classes through eval_class in
+        # single-pass bf16 on the card (a sampled heuristic needs no
+        # more) and resolves to "gather" off it, as in the reference
+        table_ops = "search"
+    search = policy == "value" and scfg.depth > 0
+    stats = {"tiers": {}, "chunks": 0} if search else None
     if policy == "value":
         eval_fn = table_dispatch.make_evaluator(ts, table_ops)
     elif policy not in ("random", "score"):
         raise ValueError(f"unknown policy: {policy}")
+
+    def search_values(weights, roots, need):
+        def value_fn(b):
+            return eval_fn(weights, b.reshape(b.shape[:-2] + (16,)))
+
+        estimator = make_compacted_estimator(
+            value_fn, scfg.depth, scfg.width, scfg.since_empty,
+            batch=4 * n, input_rep="codes",
+        )
+        vals = estimator(roots, draws.search(), need)
+        for tier, c in estimator.tier_counts.items():
+            stats["tiers"][tier] = stats["tiers"].get(tier, 0) + c
+        stats["chunks"] += estimator.tree.chunks
+        return vals
 
     def step(st: _EvalState, weights, tperm, ar) -> _EvalState:
         draws.split()
@@ -86,8 +111,21 @@ def _make_eval_segment(ts, scfg: SearchConfig, n: int, s_cap: int,
         elif policy == "score":
             # score_eval: greedy on immediate reward
             vals = delta.to(torch.float32)
-        else:
+        elif not search:
             vals = eval_fn(weights, cells4)  # (4, N)
+        else:
+            # root compaction: only legal afterstates of active games
+            # that are crowded (empty < since_empty) enter the tree;
+            # the rest take the base estimate, as the pruning would
+            aftc = torch.stack([
+                aft[0], engf.transpose_codes(aft[1]),
+                aft[2], engf.transpose_codes(aft[3]),
+            ]).reshape(4 * n, 4)  # canonical codes
+            empty_cnt = (cells4.reshape(4 * n, 16) == 0).sum(dim=1)
+            act = st.active[None, :].expand(4, n).reshape(4 * n)
+            need = (legal.reshape(4 * n) & act
+                    & (empty_cnt < scfg.since_empty))
+            vals = search_values(weights, aftc, need).reshape(4, n)
         # argmax picks the first maximum in both frameworks: keep the
         # mask and the direction order
         masked = torch.where(legal, vals, float("-inf"))
@@ -121,6 +159,7 @@ def _make_eval_segment(ts, scfg: SearchConfig, n: int, s_cap: int,
             st = step(st, weights, tperm, ar)
         return st
 
+    segment.search_stats = stats
     return segment
 
 
@@ -183,10 +222,12 @@ def trial(
         weights = torch.zeros(0, dtype=torch.float32, device=device)
     t0 = time.time()
     prev_active = np.ones(num, bool)
+    steps = 0
     while True:
         if stop_cb is not None and stop_cb():
             break
         st = seg(st, weights)
+        steps += steps_per_call
         # the one host read of the segment
         host = torch.stack(
             [st.active.to(torch.int32), st.score, st.odometer]
@@ -236,9 +277,14 @@ def trial(
         lines.append(f"score = {scores[i]} moves = {odos[i]} "
                      f"reached {1 << int(tiles[i])}\n")
     total_moves = int(odos.sum())
-    # one shuffle = one row-LUT move resolution; greedy play resolves
-    # the 4 root afterstates per move
-    shuffles_per_move = 4
+    # one shuffle = one row-LUT move resolution.  Each move resolves
+    # the 4 root afterstates, and with search each chance child 4 more
+    # at every level: the full tree, an UPPER bound on the work done,
+    # since compaction sends only the needy roots into the tree
+    expand = 0  # move resolutions per searched board
+    for _ in range(scfg.depth):
+        expand = scfg.width * (4 + 4 * expand)
+    shuffles_per_move = 4 + 4 * expand
     total_shuffles = total_moves * shuffles_per_move
     lines += [
         f"average score of {num} runs = {round(float(scores.mean()), 3)}",
@@ -251,10 +297,20 @@ def trial(
         f"average time per move = "
         f"{round(elapsed / max(total_moves, 1) * 1000, 3)} ms",
         f"total env-moves = {total_moves}",
-        f"total shuffles = {total_shuffles} ({shuffles_per_move} per move)",
+        f"total shuffles = {total_shuffles} "
+        f"({shuffles_per_move} per move"
+        + (", upper bound: compacted roots skip the tree)"
+           if scfg.depth > 0 else ")"),
         f"average time per shuffle = "
-        f"{round(elapsed / max(total_shuffles, 1) * 1000, 4)} ms",
+        f"{round(elapsed / max(total_shuffles, 1) * 1000, 4)} ms"
+        + (" (lower bound)" if scfg.depth > 0 else ""),
     ]
+    search_stats = None
+    if seg.search_stats is not None:
+        search_stats = {**seg.search_stats, "steps": steps}
+        lines.append(f"search steps per compaction tier (roots) = "
+                     f"{search_stats['tiers']}, tree chunks = "
+                     f"{search_stats['chunks']}")
     report = "\n".join(lines)
     log.add(report)
 
@@ -276,6 +332,7 @@ def trial(
         elapsed=elapsed,
         report=report,
         best_game=best_game,
+        search_stats=search_stats,
     )
 
 
