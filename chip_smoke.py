@@ -11,22 +11,30 @@ Phases, one line of output each (the kernel phases one per check):
   3. kernel: ``eval_class`` in all three precisions against its plain
      PyTorch version at the three class shapes, at the serve batch
      B = 32768 (4 x 8192 afterstates) and a ragged B = 1001, within
-     2^-20 of sum |terms|; then kernel and plain times at B = 32768,
-     (17, 256, 256), timed with CUDA events;
-  4. slice: a canonical-form n=5 agent with dyadic weights is saved in
-     the reference's checkpoint format, loaded by the port onto the
-     card, and plays 8192 games with ``table_ops="auto"`` (the kernel)
-     and again with ``"gather"``; every value is exact in f32, so the
-     two runs must agree exactly;
+     2^-20 of sum |terms|, and bitwise against the ordered f32
+     accumulation of its terms (``eval_class_ordered``; RNE bf16 terms
+     for "bf16"); then at (17, 256, 256) the kernel's, the plain
+     version's and one library call's time (``embedding_bag``, sum),
+     timed with CUDA events, at B = 32768 and at the bootstrap's
+     B = 8192, each beside its bound and its earlier reading;
+  4. slice: a canonical-form n=5 agent with dyadic weights is saved
+     through the port's ``store.checkpoint.save_agent`` (the
+     reference's format), loaded onto the card, and plays 8192 games
+     with ``table_ops="auto"`` (the kernel) and again with
+     ``"gather"``; every value is exact in f32, so the two runs must
+     agree exactly;
   5. grad_class: the class-gradient kernel against its plain version
      at the three class shapes, B = 8192 and a ragged B = 1001, half
      the rows invalid, with random indices and with every row on one
      entry (a fresh start's collision): hits bitwise, dsum within
      hits * 2^-23 * (sum of |dw| at the entry), the bound between two
-     f32 summation orders; then kernel and plain times;
+     f32 summation orders; then kernel, plain and library
+     (``index_add_`` pair) times beside the bound;
   6. fold_class: the D4 class-fold kernel bitwise against the plain
      ``symmetrize_class_sum`` on random pairs (the 16^4 class at n=4
-     and n=5, the 16^3 class at n=3); then kernel and plain times;
+     and n=5, the 16^3 class at n=3, the 16^2 class at n=2); then
+     kernel and plain times beside the bound and the earlier reading (no
+     library call computes a D4 orbit sum);
   7. train_step: one n=5 train step of 8192 envs through the kernels
      on the card and through their plain versions on the CPU, from one
      state with dyadic weights and the same numpy draws: every integer
@@ -35,13 +43,15 @@ Phases, one line of output each (the kernel phases one per check):
   8. train: ``Trainer.run`` at the shipped defaults (n=5, 8192 envs,
      K=64) for 12 segments: every step launched each kernel, the
      weights are finite, episodes completed, the saved best game
-     replays to its score, and the checkpoint loads through
-     ``tpu2048.store.checkpoint.load_agent`` and plays 256 games
-     through the port; env-steps/s, wall per segment, and the ma-100
-     of the first and last windows (the learning signal);
+     replays to its score, and the checkpoint loads through the port's
+     ``load_agent`` and plays 256 games; env-steps/s, wall per
+     segment, and the ma-100 of the first and last windows (the
+     learning signal);
   9. search: ``eval_class`` "bf16" at the search tree's largest chunk,
      B = 2,000,000 rows of the (17, 256, 256) class, against its plain
-     version within 2^-20 of sum |terms|, and both timed; then the
+     version within 2^-20 of sum |terms| and bitwise against the
+     ordered accumulation, timed with the plain version and the
+     library call beside its bound and its earlier reading; then the
      phase-4 agent plays 256 games with depth-3 / width-4 /
      since_empty=6 expectimax through ``trial`` with
      ``table_ops="auto"`` (the tree's values through the kernel in
@@ -55,11 +65,13 @@ Phases, one line of output each (the kernel phases one per check):
 
 Then a JSON line of the kernels of the three paths (name, route,
 source, the TPU kernel it replaces, its launches in the serve, train
-and search runs, its largest error against the plain version, and its
-and the plain version's time in ms), and last ``{"ok": true,
-"device": {...}}``.
+and search runs, its largest error against the plain version, its,
+the plain version's and the library call's time in ms, and its bound:
+the bytes it must move, each input read once and each output written
+once, over 3.35 TB/s; every timed shape under ``instances``), and last
+``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card the script
-exits 1 before any phase.  It imports no jax.
+exits 1 before any phase.  It imports nothing of jax or ``tpu2048``.
 """
 
 from __future__ import annotations
@@ -84,6 +96,22 @@ SEARCH_B = 2_000_000  # leaf rows of one chunk of the search tree
 SHAPES = [(17, 256, 256), (52, 64, 64), (24, 16, 16)]
 PRECISIONS = ["bf16x2", "f32", "bf16"]
 REL_TOL = 2.0**-20  # of sum |terms|: f32 summation order only
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published, at 700 W
+# the kernels' earlier readings at the same shapes, before the
+# redesign of eval_class and fold_class (PERF.md section 6, NVIDIA H100
+# 80GB HBM3, 700.00 W), printed on the *_time lines beside this run's
+# (not in the kernels line, whose numbers are all of this run)
+EARLIER_MS = {("eval_class", "bf16", 32768): 0.010267,
+              ("eval_class", "bf16x2", 32768): 0.007419,
+              ("eval_class", "f32", 32768): 0.007429,
+              ("eval_class", "bf16", SEARCH_B): 0.4040,
+              ("grad_class", "random", TRAIN_B): 0.009717,
+              ("fold_class", "n=5", 17): 0.062832}
+
+
+def _bound_ms(nbytes: float) -> float:
+    """The least time of moving ``nbytes`` through device memory."""
+    return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
 def _line(phase: str, **kw) -> None:
@@ -170,6 +198,61 @@ def _device_ms(fn, reps: int = 7, inner: int = 20):
     return statistics.median(times), min(times), max(times)
 
 
+def _eval_library(tables, hi, lo, precision):
+    """(one-call library function, its flat indices) for
+    ``eval_class``: ``embedding_bag`` (sum) of the flat indices
+    ``g*H*L + hi*L + lo`` into the (G*H*L, 1) table, RNE-rounded for
+    "bf16"; indices and table are made here, outside any timing."""
+    g, h, l = tables.shape
+    gi = torch.arange(g, device=tables.device)
+    flat = (gi * h * l + hi.long() * l + lo.long()).contiguous()
+    table = (tables.to(torch.bfloat16).float() if precision == "bf16"
+             else tables).reshape(-1, 1).contiguous()
+
+    def call():
+        return torch.nn.functional.embedding_bag(flat, table, mode="sum")
+
+    return call, flat
+
+
+def _eval_bytes(tables, hi, flat) -> int:
+    """Bytes ``eval_class`` must move on these inputs: the table
+    entries the indices touch, hi and lo, and the output."""
+    touched = int(torch.unique(flat).numel())
+    return 4 * touched + 2 * hi.numel() * 4 + hi.shape[0] * 4
+
+
+def _eval_time(tables, hi, lo, precision, inner=20) -> dict:
+    """Kernel, plain and library times of ``eval_class`` on these
+    inputs, the library call checked, and the bound."""
+    from tpu2048_torch.ops import kernels
+
+    lib, flat = _eval_library(tables, hi, lo, precision)
+    want = kernels.eval_class_ordered(tables, hi, lo, precision)
+    got_lib = lib()[:, 0]
+    scale = kernels.eval_class_reference(tables.abs(), hi, lo, precision)
+    if not bool(((got_lib - want).abs() <= REL_TOL * scale).all()):
+        raise AssertionError("embedding_bag disagrees with eval_class")
+    k = _device_ms(lambda: kernels.eval_class(tables, hi, lo, precision),
+                   inner=inner)
+    p = _device_ms(lambda: kernels.eval_class_reference(tables, hi, lo,
+                                                        precision),
+                   inner=inner)
+    q = _device_ms(lib, inner=inner)
+    nbytes = _eval_bytes(tables, hi, flat)
+    b = hi.shape[0]
+    row = {"precision": precision, "shape": list(tables.shape), "batch": b,
+           "ms": k[0], "plain_ms": p[0], "library_ms": q[0],
+           "bound_ms": _bound_ms(nbytes), "bytes": nbytes,
+           "bound_share": _bound_ms(nbytes) / k[0]}
+    _line("kernel_time", kernel="eval_class", **row,
+          earlier_ms=EARLIER_MS.get(("eval_class", precision, b)),
+          kernel_ms_median_min_max=list(k), plain_ms_median_min_max=list(p),
+          library="embedding_bag(mode='sum')",
+          library_ms_median_min_max=list(q))
+    return row
+
+
 def phase_kernel() -> dict:
     from tpu2048_torch.ops import kernels
 
@@ -182,6 +265,11 @@ def phase_kernel() -> dict:
                 tables, hi, lo = _inputs(g, h, l, b, seed=b + g, dev=dev)
                 got = kernels.eval_class(tables, hi, lo, precision)
                 torch.cuda.synchronize()
+                if not torch.equal(got, kernels.eval_class_ordered(
+                        tables, hi, lo, precision)):
+                    raise AssertionError(
+                        f"{precision} {g,h,l} B={b}: not bitwise the ordered "
+                        "f32 accumulation of its terms")
                 ref_t = (tables.to(torch.bfloat16).float()
                          if precision == "bf16" else tables)
                 want = kernels.eval_class_reference(ref_t, hi, lo, "f32")
@@ -200,33 +288,32 @@ def phase_kernel() -> dict:
         worst[precision] = max_abs
         _line("kernel_check", precision=precision, max_abs_err=max_abs,
               max_err_over_sum_abs=max_ratio, bound=REL_TOL,
-              shapes=SHAPES, batches=[SERVE_B, RAGGED_B])
+              bitwise_ordered=True, shapes=SHAPES,
+              batches=[SERVE_B, RAGGED_B])
 
     g, h, l = SHAPES[0]
-    tables, hi, lo = _inputs(g, h, l, SERVE_B, seed=7, dev=dev)
-    times = {}
-    for precision in PRECISIONS:
-        k = _device_ms(lambda: kernels.eval_class(tables, hi, lo, precision))
-        p = _device_ms(
-            lambda: kernels.eval_class_reference(tables, hi, lo, precision))
-        times[precision] = (k, p)
-        _line("kernel_time", precision=precision, shape=[g, h, l],
-              batch=SERVE_B, kernel_ms_median_min_max=list(k),
-              plain_ms_median_min_max=list(p))
-    return {"max_abs_err": worst["bf16x2"], "ms": times["bf16x2"][0][0],
-            "plain_ms": times["bf16x2"][1][0]}
+    rows = []
+    for b in (SERVE_B, TRAIN_B):
+        tables, hi, lo = _inputs(g, h, l, b, seed=7, dev=dev)
+        for precision in PRECISIONS:
+            rows.append(_eval_time(tables, hi, lo, precision))
+    # the entry's headline: the selection pass's "bf16" at 4 x 8192 rows
+    head = next(r for r in rows if r["precision"] == "bf16"
+                and r["batch"] == SERVE_B)
+    return {"max_abs_err": max(worst.values()), "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "library_ms": head["library_ms"],
+            "bound_ms": head["bound_ms"], "instances": rows}
 
 
 def _served_agent():
     """(tuple set, dense weights on the card) of a canonical-form n=5
     agent with dyadic weights, saved in the reference's checkpoint
     format and loaded by the port."""
-    from tpu2048.config import AgentConfig
-    from tpu2048.store.artifacts import LocalStore
-    from tpu2048.store.checkpoint import save_agent
+    from tpu2048_torch.config import AgentConfig
     from tpu2048_torch.features.canonical import is_canonical
     from tpu2048_torch.features.ntuple import get_tuple_set
-    from tpu2048_torch.store.checkpoint import load_agent_dense
+    from tpu2048_torch.store.artifacts import LocalStore
+    from tpu2048_torch.store.checkpoint import load_agent_dense, save_agent
 
     acfg = AgentConfig()  # n=5, canonical-orbit form
     assert acfg.n == 5 and is_canonical(acfg)
@@ -323,17 +410,56 @@ def phase_grad_class() -> dict:
           shapes=SHAPES, batches=[TRAIN_B, RAGGED_B],
           cases=["random", "all rows on one entry"], hits="bitwise")
     g, h, l = SHAPES[0]
-    times = {}
+    rows = []
     for case, collide in (("random", False), ("collide", True)):
         args = _grad_inputs(g, h, l, TRAIN_B, 11, dev, collide)
         k = _device_ms(lambda: kernels.grad_class(*args, h, l))
         pl = _device_ms(lambda: kernels.grad_class_reference(*args, h, l))
-        times[case] = (k, pl)
-        _line("grad_class_time", case=case, shape=[g, h, l], batch=TRAIN_B,
+        lib = _grad_library(*args, h, l)
+        want_h = kernels.grad_class_reference(*args, h, l)[1]
+        if not torch.equal(lib()[1], want_h):
+            raise AssertionError("the index_add_ pair's hits differ")
+        q = _device_ms(lib)
+        hi, _lo, _dw, valid = args
+        nvalid = int(valid.sum())
+        # valid rows' indices and dw, the mask, and both (G, H, L) blocks
+        nbytes = (2 * nvalid * g * 4 + nvalid * 4 + valid.numel()
+                  + 2 * g * h * l * 4)
+        row = {"case": case, "shape": [g, h, l], "batch": TRAIN_B,
+               "ms": k[0], "plain_ms": pl[0], "library_ms": q[0],
+               "bound_ms": _bound_ms(nbytes), "bytes": nbytes,
+               "bound_share": _bound_ms(nbytes) / k[0]}
+        rows.append(row)
+        _line("grad_class_time", **row,
+              earlier_ms=EARLIER_MS.get(("grad_class", case, TRAIN_B)),
               kernel_ms_median_min_max=list(k),
-              plain_ms_median_min_max=list(pl))
-    return {"max_abs_err": worst, "ms": times["random"][0][0],
-            "plain_ms": times["random"][1][0]}
+              plain_ms_median_min_max=list(pl),
+              library="two index_add_ on precomputed flat indices",
+              library_ms_median_min_max=list(q))
+    return {"max_abs_err": worst, "ms": rows[0]["ms"],
+            "plain_ms": rows[0]["plain_ms"],
+            "library_ms": rows[0]["library_ms"],
+            "bound_ms": rows[0]["bound_ms"], "instances": rows}
+
+
+def _grad_library(hi, lo, dw, valid, h, l):
+    """The one-call library form of ``grad_class``: two ``index_add_``
+    calls on flat indices made here; the zeroed blocks and the invalid
+    rows' zeroed dw are made inside the call."""
+    g = hi.shape[1]
+    gi = torch.arange(g, device=hi.device)
+    flat = ((gi * h + hi.long()) * l + lo.long()).reshape(-1)
+    count = valid.to(torch.float32)[:, None].expand(-1, g).reshape(-1)
+
+    def call():
+        dsum = torch.zeros(g * h * l, dtype=torch.float32, device=hi.device)
+        hits = torch.zeros_like(dsum)
+        w = torch.where(valid, dw, 0.0)[:, None].expand(-1, g).reshape(-1)
+        dsum.index_add_(0, flat, w)
+        hits.index_add_(0, flat, count)
+        return dsum.view(g, h, l), hits.view(g, h, l)
+
+    return call
 
 
 def phase_fold_class() -> dict:
@@ -343,7 +469,8 @@ def phase_fold_class() -> dict:
 
     dev = torch.device("cuda")
     worst = 0.0
-    for n, g, size in ((4, 17, 65536), (5, 17, 65536), (3, 52, 4096)):
+    for n, g, size in ((4, 17, 65536), (5, 17, 65536), (3, 52, 4096),
+                       (2, 24, 256)):
         ts = get_tuple_set(n)
         pair = torch.from_numpy(np.random.default_rng(n).standard_normal(
             (2, g, size)).astype(np.float32)).to(dev)
@@ -355,16 +482,28 @@ def phase_fold_class() -> dict:
             raise AssertionError(f"fold_class n={n}: not bitwise equal to "
                                  "symmetrize_class_sum")
     _line("fold_class_check", classes=["n=4 17x16^4", "n=5 17x16^4",
-                                       "n=3 52x16^3"], bitwise=True,
-          max_abs_err=worst)
+                                       "n=3 52x16^3", "n=2 24x16^2"],
+          bitwise=True, max_abs_err=worst)
     ts = get_tuple_set(5)
     pair = torch.from_numpy(np.random.default_rng(9).standard_normal(
         (2, 17, 65536)).astype(np.float32)).to(dev)
     k = _device_ms(lambda: kernels.fold_class(ts, 0, 17, pair))
     pl = _device_ms(lambda: symmetrize_class_sum(ts, 0, 17, pair))
-    _line("fold_class_time", shape=[2, 17, 65536],
-          kernel_ms_median_min_max=list(k), plain_ms_median_min_max=list(pl))
-    return {"max_abs_err": worst, "ms": k[0], "plain_ms": pl[0]}
+    # the function's bytes: the pair read once and written once; the
+    # kernel's own plan is not part of the function and is printed apart
+    nbytes = 2 * pair.numel() * 4
+    orbits, reps = kernels.fold_orbit_plan(5, 0, 17)
+    row = {"shape": [2, 17, 65536], "ms": k[0], "plain_ms": pl[0],
+           "library_ms": None, "bound_ms": _bound_ms(nbytes),
+           "bytes": nbytes, "bound_share": _bound_ms(nbytes) / k[0]}
+    _line("fold_class_time", **row, plan_bytes=orbits.nbytes + reps.nbytes,
+          earlier_ms=EARLIER_MS[("fold_class", "n=5", 17)],
+          kernel_ms_median_min_max=list(k),
+          plain_ms_median_min_max=list(pl),
+          library="none: no one call computes a D4 orbit sum")
+    return {"max_abs_err": worst, "ms": k[0], "plain_ms": pl[0],
+            "library_ms": None, "bound_ms": row["bound_ms"],
+            "instances": [row]}
 
 
 def _to(x, dev):
@@ -375,8 +514,8 @@ def _to(x, dev):
 
 
 def phase_train_step() -> None:
-    from tpu2048.config import AgentConfig, TrainConfig
     from tpu2048_torch.agent import td
+    from tpu2048_torch.config import AgentConfig, TrainConfig
     from tpu2048_torch.draws import NumpyDraws
     from tpu2048_torch.features.ntuple import get_tuple_set
 
@@ -430,14 +569,14 @@ class _StopAfter:
 
 
 def phase_train(name: str) -> dict:
-    from tpu2048.config import AgentConfig, TrainConfig
-    from tpu2048.store.artifacts import LocalStore
-    from tpu2048.store.checkpoint import load_agent, load_game
-    from tpu2048.obs.logging import Logger
+    from tpu2048_torch.config import AgentConfig, TrainConfig
     from tpu2048_torch.engine.core import np_move
     from tpu2048_torch.features.ntuple import get_tuple_set
+    from tpu2048_torch.obs.logging import Logger
     from tpu2048_torch.ops import kernels
-    from tpu2048_torch.store.checkpoint import load_agent_dense
+    from tpu2048_torch.store.artifacts import LocalStore
+    from tpu2048_torch.store.checkpoint import (load_agent, load_agent_dense,
+                                                load_game)
     from tpu2048_torch.train.loop import Trainer
     from tpu2048_torch.train.trial import trial
 
@@ -508,7 +647,7 @@ def phase_search() -> tuple:
     """The search path: the kernel at the tree's scale, then depth-3
     games through the kernel and through plain gathers.  Returns (the
     path's eval_class launches, the tree-scale check's numbers)."""
-    from tpu2048.config import SearchConfig
+    from tpu2048_torch.config import SearchConfig
     from tpu2048_torch.ops import kernels
     from tpu2048_torch.train.trial import trial
 
@@ -516,27 +655,26 @@ def phase_search() -> tuple:
     g, h, l = SHAPES[0]
     tables, hi, lo = _inputs(g, h, l, SEARCH_B, seed=13, dev=dev)
     got = kernels.eval_class(tables, hi, lo, "bf16")
+    if not torch.equal(got, kernels.eval_class_ordered(tables, hi, lo,
+                                                       "bf16")):
+        raise AssertionError(f"eval_class bf16 at B={SEARCH_B}: not bitwise "
+                             "the ordered accumulation of its terms")
     want = kernels.eval_class_reference(tables, hi, lo, "bf16")
     gi = torch.arange(g, device=dev)
     scale = tables.to(torch.bfloat16).float()[gi, hi.long(), lo.long()
                                                ].abs().sum(dim=-1)
     err = (got - want).abs()
+    err_max = float(err.max())
     ratio = float((err / scale).max())
     if not bool(torch.isfinite(got).all()) or ratio > REL_TOL:
         raise AssertionError(f"eval_class bf16 at B={SEARCH_B}: error "
                              f"{ratio:.3g} of sum|terms| > {REL_TOL:.3g}")
-    k = _device_ms(lambda: kernels.eval_class(tables, hi, lo, "bf16"),
-                   inner=5)
-    p = _device_ms(
-        lambda: kernels.eval_class_reference(tables, hi, lo, "bf16"),
-        inner=5)
-    check = {"batch": SEARCH_B, "shape": [g, h, l], "precision": "bf16",
-             "max_abs_err": float(err.max()), "max_err_over_sum_abs": ratio,
-             "ms": k[0], "plain_ms": p[0]}
-    _line("search_kernel_check", bound=REL_TOL,
-          kernel_ms_median_min_max=list(k), plain_ms_median_min_max=list(p),
+    del got, want, scale, err
+    check = {"max_abs_err": err_max, "max_err_over_sum_abs": ratio,
+             **_eval_time(tables, hi, lo, "bf16", inner=5)}
+    _line("search_kernel_check", bound=REL_TOL, bitwise_ordered=True,
           **check)
-    del tables, hi, lo, got, want, scale, err
+    del tables, hi, lo
 
     ts, w = _served_agent()
     scfg = SearchConfig(depth=3, width=4, since_empty=6)
@@ -608,9 +746,11 @@ def main() -> int:
     phase_train_step()
     train = phase_train("smoke")
     search, search_check = phase_search()
-    kstats["eval_class"]["search_check"] = search_check
-    if "jax" in sys.modules:
-        raise AssertionError("the port loaded jax")
+    kstats["eval_class"]["instances"].append(search_check)
+    loaded = sorted(m for m in sys.modules if m == "jax" or m == "tpu2048"
+                    or m.startswith(("jax.", "tpu2048.")))
+    if loaded:
+        raise AssertionError(f"the port loaded {loaded}")
     replaces = {
         "eval_class": "tpu2048/ops/pallas_kernels.py:131",
         "grad_class": "tpu2048/ops/pallas_kernels.py:220",
@@ -626,6 +766,10 @@ def main() -> int:
         "launches_by_path": {"serve": serve if k == "eval_class" else 0,
                              "train": train[k],
                              "search": search if k == "eval_class" else 0},
+        "bound_by": "bytes",
+        # the same two readings under this round's names
+        "bound_us": 1e3 * kstats[k]["bound_ms"],
+        "library_call_ms": kstats[k]["library_ms"],
         **kstats[k],
     } for k in replaces]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,8 +37,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tpu2048.config import AgentConfig, SearchConfig, TrainConfig  # noqa: E402
-from tpu2048.obs.logging import Logger  # noqa: E402
+from tpu2048_torch.config import (AgentConfig, SearchConfig,  # noqa: E402
+                                  TrainConfig)
+from tpu2048_torch.obs.logging import Logger  # noqa: E402
 from tpu2048_torch.features.canonical import to_dense_table  # noqa: E402
 from tpu2048_torch.features.ntuple import get_tuple_set  # noqa: E402
 from tpu2048_torch.ops import kernels  # noqa: E402

@@ -34,7 +34,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tpu2048.config import AgentConfig, TrainConfig  # noqa: E402
+from tpu2048_torch.config import AgentConfig, TrainConfig  # noqa: E402
 from tpu2048_torch.agent import td  # noqa: E402
 from tpu2048_torch.draws import TorchDraws  # noqa: E402
 from tpu2048_torch.features.ntuple import get_tuple_set  # noqa: E402

@@ -15,11 +15,13 @@ same games from the same draws as ``tpu2048``:
     (``expectimax.py:234``), and each tree level draws from
     ``split(fold_in(key, depth))`` (``:151``, ``:112-119``).
 
-``JaxTrainDraws`` replays the train step's schedule likewise.
+``JaxTrainDraws`` replays the train step's schedule likewise, and
+``jax_cfg`` gives the JAX package the twin of a port config.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 
 import jax
@@ -27,8 +29,18 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import tpu2048.config as jax_config
+
 # six xdist workers share the machine
 torch.set_num_threads(2)
+
+
+def jax_cfg(cfg):
+    """The JAX package's config of the same class and fields as the
+    port's ``cfg`` (``tpu2048_torch.config``), for the JAX side of a
+    comparison."""
+    return getattr(jax_config, type(cfg).__name__)(
+        **dataclasses.asdict(cfg))
 
 
 @jax.jit

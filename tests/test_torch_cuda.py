@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu2048.config import AgentConfig, SearchConfig, TrainConfig
+from tpu2048_torch.config import AgentConfig, SearchConfig, TrainConfig
 from tpu2048_torch.agent import td
 from tpu2048_torch.draws import NumpyDraws
 from tpu2048_torch.features.ntuple import get_tuple_set
@@ -60,6 +60,22 @@ def test_eval_class_kernel_matches_plain(g, h, l, b, precision):
     assert bool(((got - want).abs() <= 2.0**-20 * scale).all())
 
 
+@pytest.mark.parametrize("g,h,l", SHAPES)
+@pytest.mark.parametrize("precision", ["bf16x2", "f32", "bf16"])
+def test_eval_class_kernel_bitwise_ordered(g, h, l, precision):
+    """At a ragged B, every precision from the f32 block equals the
+    ordered f32 accumulation of its terms (RNE bf16 values for "bf16")
+    bit for bit, also from a misaligned index view."""
+    dev = needs_card()
+    tables, hi, lo = _inputs(g, h, l, 1001, seed=g + 5, dev=dev)
+    want = kernels.eval_class_ordered(tables, hi, lo, precision)
+    assert torch.equal(kernels.eval_class(tables, hi, lo, precision), want)
+    shift = [torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(t.shape)
+             for t in (hi, lo)]
+    assert shift[0].data_ptr() % 16
+    assert torch.equal(kernels.eval_class(tables, *shift, precision), want)
+
+
 def test_eval_class_bf16_at_search_tree_scale():
     """B = 2,000,000 rows, one chunk of the depth-3 / width-4 search
     tree's leaves, through the (17, 256, 256) class in "bf16"."""
@@ -71,6 +87,8 @@ def test_eval_class_bf16_at_search_tree_scale():
     scale = tables.to(torch.bfloat16).float()[gi, hi.long(), lo.long()
                                                ].abs().sum(dim=-1)
     assert bool(((got - want).abs() <= 2.0**-20 * scale).all())
+    assert torch.equal(got, kernels.eval_class_ordered(tables, hi, lo,
+                                                       "bf16"))
 
 
 def test_search_trial_kernel_equals_gather_on_card():
@@ -155,11 +173,11 @@ def test_grad_class_kernel_flags_bad_index():
     assert bool(dsum[2, 0, 0].isnan()) and int(dsum.isnan().sum()) == 1
 
 
-@pytest.mark.parametrize("n", [3, 4, 5])
+@pytest.mark.parametrize("n", [2, 3, 4, 5])
 def test_fold_class_kernel_bitwise(n):
     dev = needs_card()
     ts = get_tuple_set(n)
-    g, size = (52, 4096) if n == 3 else (17, 65536)
+    g, size = {2: (24, 256), 3: (52, 4096)}.get(n, (17, 65536))
     pair = torch.from_numpy(np.random.default_rng(n).standard_normal(
         (2, g, size)).astype(np.float32)).to(dev)
     before = kernels.fold_class.launches

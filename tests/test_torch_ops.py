@@ -1,7 +1,8 @@
-"""The port's table ops: the plain versions of ``eval_class`` and
-``grad_class`` against the JAX Pallas kernels (interpret mode), the
-``fold_class`` kernel's gather plan against the plain fold, and the
-evaluators and class gradients against JAX's.  The CUDA kernels
+"""The port's table ops: the plain versions of ``eval_class`` (the
+kernel's ordered sum included) and ``grad_class`` against the JAX
+Pallas kernels (interpret mode), the ``fold_class`` kernel's plans
+against the plain fold, and the evaluators and class gradients against
+JAX's.  The CUDA kernels
 themselves are tested on the card, in ``test_torch_cuda.py``."""
 
 import jax.numpy as jnp
@@ -58,6 +59,41 @@ def test_eval_class_reference_matches_pallas_interpret(g, h, l, precision):
         np.testing.assert_allclose(got, want, atol=g * 4e-5 * tmax)
     else:  # same bf16 terms; only f32 summation order differs
         np.testing.assert_allclose(got, want, atol=g * 2.0**-24 * tmax)
+
+
+@pytest.mark.parametrize("g,h,l", SHAPES)
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_eval_class_ordered_matches_pallas_interpret(g, h, l, precision):
+    """``eval_class_ordered``, the card kernel's exact arithmetic (and
+    ``chip_smoke.py``'s bitwise reference for it), against the Pallas
+    kernel in interpret mode: at the existing tolerances, and for
+    "bf16" within the 2^-8 bar of ``tests/test_ops.py:146`` of the
+    exact f32 sum."""
+    tables, hi, lo = _class_inputs(g, h, l, 128, seed=g + 1)
+    jt, jh, jl = jnp.asarray(tables), jnp.asarray(hi), jnp.asarray(lo)
+    want = np.asarray(pk.eval_class(jt, jh, jl, 64, True, precision))
+    got = kernels.eval_class_ordered(torch.from_numpy(tables),
+                                     torch.from_numpy(hi),
+                                     torch.from_numpy(lo), precision).numpy()
+    tmax = float(np.abs(tables).max())
+    if precision == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    elif precision == "bf16x2":
+        np.testing.assert_allclose(got, want, atol=g * 4e-5 * tmax)
+    else:
+        np.testing.assert_allclose(got, want, atol=g * 2.0**-24 * tmax)
+        exact = np.asarray(pk.eval_class(jt, jh, jl, 64, True, "f32"))
+        rel = np.abs(got - exact) / (np.abs(exact) + tmax)
+        assert rel.max() < g * 2.0**-8
+    # the order is g = 0 .. G-1: the same sum, term by term, in float64
+    # differs from it by f32 rounding only
+    terms = (tables.astype(np.float64) if precision != "bf16" else
+             torch.from_numpy(tables).bfloat16().double().numpy())[
+        np.arange(g), hi, lo]
+    acc = np.zeros(128, np.float32)
+    for gi in range(g):
+        acc = (acc + terms[:, gi].astype(np.float32)).astype(np.float32)
+    np.testing.assert_array_equal(got, acc)
 
 
 def test_eval_class_on_cpu_takes_plain_version_and_counts_nothing():
@@ -297,9 +333,9 @@ def test_make_train_evaluator_and_mxu_eval_idx_match_jax_n5(canonical):
 
 
 def _fold_emulated(n, feat0, g, pair: np.ndarray) -> np.ndarray:
-    """The fold_class kernel's arithmetic in numpy: each output is the
-    8-term tree of the kernel, gathered straight from the input through
-    ``kernels.fold_plan``, in f32."""
+    """The D4 orbit sum through ``kernels.fold_plan``'s rounds in
+    numpy: each output is the 8-term tree of its leaves in the
+    reference's association order, gathered from the input, in f32."""
     plan = kernels.fold_plan(n, feat0, g)
     size = pair.shape[-1]
     k = {256: 2, 4096: 3, 65536: 4}[size]
@@ -330,7 +366,8 @@ def _fold_emulated(n, feat0, g, pair: np.ndarray) -> np.ndarray:
 
 @pytest.mark.parametrize("n", [2, 3, 5])
 def test_fold_plan_gives_the_plain_fold_bitwise(n):
-    """The kernel's gather plan and its association order reproduce
+    """``kernels.fold_plan``'s rounds, from which the kernel's orbit
+    plan is derived, and the 8-term association order reproduce
     ``symmetrize_class_sum`` bit for bit, for each class shape the
     kernel takes (16^2 at n=2, 16^3 at n=3, 16^4 at n=5)."""
     ts = tnt.get_tuple_set(n)
@@ -340,6 +377,70 @@ def test_fold_plan_gives_the_plain_fold_bitwise(n):
     want = tsym.symmetrize_class_sum(ts, feat0, g, torch.from_numpy(pair))
     np.testing.assert_array_equal(_fold_emulated(n, feat0, g, pair),
                                   want.numpy())
+
+
+def _fold_orbit_emulated(n, feat0, g, pair: torch.Tensor) -> torch.Tensor:
+    """The redesigned fold_class kernel's arithmetic in torch, over the
+    whole class: for every entry orbit of ``kernels.fold_orbit_plan``,
+    the 8 leaves gathered once at its representative's images, and each
+    member m's sum of the leaves ``FOLD_CAYLEY[m]`` in the reference's
+    association order, written at member m's index."""
+    orbits, reps = (torch.from_numpy(a).long()
+                    for a in kernels.fold_orbit_plan(n, feat0, g))
+    size = pair.shape[-1]
+    k = {256: 2, 4096: 3, 65536: 4}[size]
+    tile = 4**k
+    ob = torch.repeat_interleave(torch.arange(len(orbits)),
+                                 orbits[:, 2] - orbits[:, 1])
+    reps = torch.from_numpy(kernels.fold_swizzle(reps.numpy(), k))
+    glob = orbits[ob[:, None], 4 + (reps >> (2 * k))] + torch.from_numpy(
+        kernels._tile_spread((reps & (tile - 1)).numpy(), k))
+    x = pair.reshape(pair.shape[0], -1)
+    out = torch.full_like(x, float("nan"))
+    v = x[:, glob]  # (R, orbits, 8 leaves)
+    for m, c in enumerate(kernels.FOLD_CAYLEY):
+        lv = v[..., list(c)]
+        y2a = (lv[..., 0] + lv[..., 1]) + (lv[..., 2] + lv[..., 3])
+        y2b = (lv[..., 4] + lv[..., 5]) + (lv[..., 6] + lv[..., 7])
+        out[:, glob[:, m]] = y2a + y2b
+    return out.reshape(pair.shape), glob
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 5])
+def test_fold_orbit_plan_gives_the_plain_fold_bitwise(n):
+    """The redesigned kernel's plan (tile orbits, entry-orbit
+    representatives, D4's table in the basis of the words, each
+    member's association order) reproduces ``symmetrize_class_sum`` bit
+    for bit over the whole class; its representatives are
+    ``canonical_mask``'s."""
+    from tpu2048_torch.features.canonical import canonical_mask
+
+    ts = tnt.get_tuple_set(n)
+    feat0, g, size = tsym._table_geometry(ts)[4][0]
+    pair = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (2, g, size)).astype(np.float32))
+    got, glob = _fold_orbit_emulated(n, feat0, g, pair)
+    want = tsym.symmetrize_class_sum(ts, feat0, g, pair)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    off = int(ts.offsets[feat0])
+    canon = np.flatnonzero(canonical_mask(ts)[off: off + g * size])
+    np.testing.assert_array_equal(np.sort(glob[:, 0].numpy()), canon)
+    orbits, _ = kernels.fold_orbit_plan(n, feat0, g)
+    assert orbits[:, 0].max() <= kernels.FOLD_MAX_SLOTS
+
+
+def test_fold_kernel_source_spells_the_cayley_table():
+    """csrc/fold_class.cu writes D4's table out in its FOLD_MEMBER
+    lines; they must be ``kernels.FOLD_CAYLEY``, row for row."""
+    import re
+    from pathlib import Path
+
+    src = (Path(kernels.__file__).parent / "csrc" / "fold_class.cu"
+           ).read_text()
+    rows = [tuple(int(v) for v in m.group(2).split(","))
+            for m in re.finditer(r"^\s*FOLD_MEMBER\((\d+),([\d, ]+)\);",
+                                 src, re.M)]
+    assert tuple(rows) == kernels.FOLD_CAYLEY
 
 
 def test_fold_class_on_cpu_is_plain_and_checks_inputs():

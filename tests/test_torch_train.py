@@ -18,13 +18,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import JaxTrainDraws, dyadic_weights
+from _torch_port import JaxTrainDraws, dyadic_weights, jax_cfg
 
 from tpu2048.agent import td as jtd
-from tpu2048.config import AgentConfig, TrainConfig
 from tpu2048.engine import fast as jfast
 from tpu2048.features import ntuple as jnt
 from tpu2048_torch.agent import td as ttd
+from tpu2048_torch.config import AgentConfig, TrainConfig
 from tpu2048_torch.engine.core import np_move
 from tpu2048_torch.features import ntuple as tnt
 from tpu2048_torch.ops import kernels
@@ -48,10 +48,11 @@ class _Jax:
     def fns(self, n, tcfg):
         key = (n, tcfg)
         if key not in self._fns:
-            ts, acfg = jnt.get_tuple_set(n), AgentConfig(n=n)
+            ts, acfg = jnt.get_tuple_set(n), jax_cfg(AgentConfig(n=n))
+            jtcfg = jax_cfg(tcfg)
             self._fns[key] = (
-                jax.jit(jtd.make_train_step(ts, acfg, tcfg, staged=True)),
-                jax.jit(jtd.make_train_segment(ts, acfg, tcfg)),
+                jax.jit(jtd.make_train_step(ts, acfg, jtcfg, staged=True)),
+                jax.jit(jtd.make_train_segment(ts, acfg, jtcfg)),
             )
         return self._fns[key]
 
@@ -69,8 +70,9 @@ def mid_states(jaxfns):
 
     def get(n):
         if n not in cache:
-            js = jtd.init_td_state(jnt.get_tuple_set(n), AgentConfig(n=n),
-                                   TCFG, jax.random.PRNGKey(n))
+            js = jtd.init_td_state(jnt.get_tuple_set(n),
+                                   jax_cfg(AgentConfig(n=n)), jax_cfg(TCFG),
+                                   jax.random.PRNGKey(n))
             cache[n] = jaxfns.fns(n, TCFG)[1](js)
         return cache[n]
 
@@ -123,7 +125,7 @@ def _assert_state(st, js, tcfg, logs=True):
 def test_init_td_state_matches_jax(n):
     key = jax.random.PRNGKey(10 + n)
     ts, acfg = jnt.get_tuple_set(n), AgentConfig(n=n)
-    js = jtd.init_td_state(ts, acfg, TCFG, key)
+    js = jtd.init_td_state(ts, jax_cfg(acfg), jax_cfg(TCFG), key)
     st = ttd.init_td_state(tnt.get_tuple_set(n), acfg, TCFG,
                            JaxTrainDraws(key), "cpu")
     _eq(st.weights, js.weights, "weights")
@@ -163,8 +165,8 @@ def _near_terminal_state(seed):
     checkerboards of two tile values with one or two holes.  Half the
     envs are 10 moves past the record limit, so their logs overflow."""
     tcfg, n = TCFG_END, 4
-    js = jtd.init_td_state(jnt.get_tuple_set(n), AgentConfig(n=n), tcfg,
-                           jax.random.PRNGKey(seed))
+    js = jtd.init_td_state(jnt.get_tuple_set(n), jax_cfg(AgentConfig(n=n)),
+                           jax_cfg(tcfg), jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed)
     m = tcfg.num_envs
     a = rng.integers(1, 7, m)[:, None, None]

@@ -10,17 +10,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_port import jax_cfg
 
-from tpu2048.config import AgentConfig, TrainConfig
 from tpu2048.features import canonical as jcanon
 from tpu2048.features import ntuple as jnt
-from tpu2048.obs.logging import Logger
-from tpu2048.obs.metrics import train_history
-from tpu2048.store import checkpoint as ckpt
-from tpu2048.store.artifacts import MemoryStore
+from tpu2048.obs.logging import Logger as JaxLogger
+from tpu2048.store import checkpoint as jckpt
 from tpu2048.train.loop import Trainer as JaxTrainer
+from tpu2048_torch.config import AgentConfig, TrainConfig
 from tpu2048_torch.engine.core import np_move
 from tpu2048_torch.features.ntuple import get_tuple_set
+from tpu2048_torch.obs.logging import Logger
+from tpu2048_torch.obs.metrics import train_history
+from tpu2048_torch.store import checkpoint as ckpt
+from tpu2048_torch.store.artifacts import MemoryStore
 from tpu2048_torch.train.loop import RNG_EXTRA, Trainer
 
 ACFG = AgentConfig(n=4)
@@ -72,8 +75,8 @@ def test_port_checkpoint_resumes_in_jax(run):
     _, w, meta = ckpt.load_agent(store, "p")
     assert "rng_key" not in meta["extras"]
     assert RNG_EXTRA in meta["extras"]
-    jt = JaxTrainer("p", ACFG, TCFG, store=store, logger=_quiet(),
-                    resume=True)
+    jt = JaxTrainer("p", jax_cfg(ACFG), jax_cfg(TCFG), store=store,
+                    logger=JaxLogger(console=False), resume=True)
     np.testing.assert_array_equal(np.asarray(jt.state.weights),
                                   tr.state.weights.numpy())
     np.testing.assert_array_equal(np.asarray(jt.state.opt_e),
@@ -92,7 +95,7 @@ def test_jax_checkpoint_resumes_in_port():
     store = MemoryStore()
     meta = {"episodes": 1234, "top_score": 5678, "top_tile": 11,
             "alpha": 1.0, "next_decay": 10000, "train_history": [1, 2, 3]}
-    ckpt.save_agent(store, "j", ACFG, w, meta, extras={
+    jckpt.save_agent(store, "j", jax_cfg(ACFG), w, meta, extras={
         "opt_e": e, "opt_a": np.abs(a),
         "rng_key": np.asarray(jax.random.PRNGKey(3), np.uint32)})
     tr = Trainer("j", ACFG, TCFG, store=store, logger=_quiet(),
@@ -167,9 +170,9 @@ def test_dense_checkpoint_resumes_canonical():
                for _ in range(3))
     a = np.abs(a)
     store = MemoryStore()
-    ckpt.save_agent(store, "d", AgentConfig(sym_impl="fold"), w,
-                    {"episodes": 40, "train_history": [5]},
-                    extras={"opt_e": e, "opt_a": a})
+    jckpt.save_agent(store, "d", jax_cfg(AgentConfig(sym_impl="fold")), w,
+                     {"episodes": 40, "train_history": [5]},
+                     extras={"opt_e": e, "opt_a": a})
     tcfg = dataclasses.replace(TCFG, episodes=1000)
     tr = Trainer("d", AgentConfig(), tcfg, store=store, logger=_quiet(),
                  resume=True, device="cpu")

@@ -12,14 +12,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import JaxDraws, dyadic_weights
+from _torch_port import JaxDraws, dyadic_weights, jax_cfg
 
-from tpu2048.config import AgentConfig, SearchConfig
+from tpu2048.config import to_dict
 from tpu2048.features import ntuple as jnt
 from tpu2048.store import checkpoint as jckpt
-from tpu2048.store.artifacts import MemoryStore
 from tpu2048.train.trial import trial as jax_trial
+from tpu2048_torch.config import AgentConfig, SearchConfig
 from tpu2048_torch.features import ntuple as tnt
+from tpu2048_torch.store.artifacts import MemoryStore
 from tpu2048_torch.store import checkpoint as tckpt
 from tpu2048_torch.train import trial as ttrial
 
@@ -36,12 +37,14 @@ def _run_both(policy, w, seed, n=5, **kw):
 
     kw = {"num": 32, "steps_per_call": 64, **kw, "seed": seed,
           "policy": policy}
+    jkw = {k: jax_cfg(v) if k == "search" else v for k, v in kw.items()}
     want = jax_trial(jnt.get_tuple_set(n),
                      None if w is None else jnp.asarray(w),
-                     progress_cb=grab("jax"), **kw)
+                     progress_cb=grab("jax"), **jkw)
     got = ttrial.trial(tnt.get_tuple_set(n),
                        None if w is None else torch.from_numpy(w),
-                       draws=JaxDraws(seed), progress_cb=grab("torch"), **kw)
+                       draws=JaxDraws(seed), progress_cb=grab("torch"),
+                       device="cpu", **kw)
     return got, want, states["torch"], states["jax"]
 
 
@@ -114,17 +117,20 @@ def test_load_agent_dense_bitwise(canonical):
     w = np.random.default_rng(4).standard_normal(ts.total).astype(np.float32)
     acfg = AgentConfig() if canonical else AgentConfig(sym_impl="fold")
     store = MemoryStore()
-    jckpt.save_agent(store, "a", acfg, w)
+    jckpt.save_agent(store, "a", jax_cfg(acfg), w)
     _, want, _ = jckpt.load_agent_dense(store, "a")
     acfg2, got, _ = tckpt.load_agent_dense(store, "a", device="cpu")
-    assert acfg2 == acfg
+    assert acfg2 == acfg and to_dict(acfg2) == to_dict(jax_cfg(acfg))
     assert got.dtype == torch.float32 and got.device.type == "cpu"
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_port_imports_no_jax():
+    """The port serves, searches, trains and checkpoints without
+    loading jax or any module of the JAX package."""
     code = textwrap.dedent("""
         import sys
+        import tempfile
         import torch
         torch.set_num_threads(2)
         import tpu2048_torch
@@ -134,8 +140,10 @@ def test_port_imports_no_jax():
         import tpu2048_torch.agent.td
         import tpu2048_torch.train.loop
         import tpu2048_torch.search.expectimax
-        from tpu2048.config import AgentConfig, SearchConfig, TrainConfig
-        from tpu2048.obs.logging import Logger
+        from tpu2048_torch.config import AgentConfig, SearchConfig, TrainConfig
+        from tpu2048_torch.obs.logging import Logger
+        from tpu2048_torch.store.artifacts import LocalStore
+        from tpu2048_torch.store.checkpoint import load_agent_dense
         from tpu2048_torch.features import ntuple
         from tpu2048_torch.train.loop import Trainer
         from tpu2048_torch.train.trial import trial
@@ -154,12 +162,22 @@ def test_port_imports_no_jax():
             def should_stop(self):
                 self.left -= 1
                 return self.left < 0
-        tr = Trainer("t", AgentConfig(n=4),
-                     TrainConfig(num_envs=8, steps_per_call=2),
-                     logger=Logger(console=False), device="cpu")
-        tr.run(job=Once())
-        assert int(tr.state.env.odometer.max()) == 2
+        with tempfile.TemporaryDirectory() as root:
+            store = LocalStore(root)
+            tr = Trainer("t", AgentConfig(n=4),
+                         TrainConfig(num_envs=8, steps_per_call=2),
+                         store=store, logger=Logger(console=False),
+                         device="cpu")
+            tr.run(job=Once())
+            assert int(tr.state.env.odometer.max()) == 2
+            _, w, _ = load_agent_dense(store, "t", device="cpu")
+            r = trial(ntuple.get_tuple_set(4), w, num=2, seed=0,
+                      steps_per_call=64)
+            assert r.odometers.min() > 0
         assert "jax" not in sys.modules, "the port loaded jax"
+        ref = sorted(m for m in sys.modules
+                     if m == "tpu2048" or m.startswith("tpu2048."))
+        assert not ref, f"the port loaded the JAX package: {ref}"
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -167,3 +185,21 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_no_card_means_no_default_device(monkeypatch):
+    """``Trainer`` and the baselines of ``trial`` default to the CUDA
+    card; without one they raise and name the way to the CPU instead
+    of falling back to it."""
+    from tpu2048_torch.config import TrainConfig
+    from tpu2048_torch.train.loop import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Trainer("x", AgentConfig(n=4), TrainConfig(num_envs=8))
+    for policy in ("random", "score"):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            ttrial.trial(tnt.get_tuple_set(4), None, num=2, policy=policy)
+    r = ttrial.trial(tnt.get_tuple_set(4), None, num=2, policy="score",
+                     device="cpu")
+    assert r.odometers.min() > 0

@@ -7,7 +7,7 @@ their device, random draws come from an explicit draw source
 CUDA kernel written for Hopper (``ops/csrc/``), built with ``nvcc``
 at first use.
 
-Two paths are ported.  Greedy play of a stored agent:
+Three paths are ported.  Greedy play of a stored agent:
 
     store/checkpoint.load_agent_dense -> train/trial.trial
       -> engine/fast (packed row-code engine)
@@ -26,8 +26,12 @@ and training at the shipped configuration on one device:
       -> the crosses' sparse update at canonical-orbit indices
       -> spawn, metrics rings, auto-reset, staged recorder rows
 
-Framework-neutral modules (``tpu2048.config``, ``tpu2048.store``,
-``tpu2048.obs``) are imported from the reference, not copied.
+and expectimax search through ``trial(search=SearchConfig(depth>0))``.
+
+The port imports nothing of ``tpu2048``: what it needs of the
+reference's framework-neutral modules has its own copy here
+(``config.py``, ``store/``, ``obs/``), held equal to the original by
+``tests/test_torch_shared.py``, so checkpoints cross both ways.
 """
 
 __version__ = "0.1.0"

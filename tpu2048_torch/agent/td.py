@@ -41,8 +41,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu2048.config import AgentConfig, TrainConfig
-
+from ..config import AgentConfig, TrainConfig
 from ..draws import Draws
 from ..engine import fast as engf
 from ..features.canonical import _gather_feat_ids, is_canonical

@@ -32,12 +32,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes of each C entry point; all return an int
 # (a cudaError_t, or for cuda_error_string a char*)
 _ENTRY_POINTS = {
-    # tables, table_bf16, hi, lo, out, B, G, H, L, stream
+    # tables, round_bf16, hi, lo, out, B, G, H, L, stream
     "eval_class_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # hi, lo, dw, valid, dsum, hits, B, G, H, L, stream
     "grad_class_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, out, plan, R, G, k, stream
-    "fold_class_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # x, out, orbits, reps, n_orbits, R, G, k, stream
+    "fold_class_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

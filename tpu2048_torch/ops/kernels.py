@@ -80,15 +80,31 @@ def eval_class_reference(tables: torch.Tensor, hi: torch.Tensor,
     return tables[g, hi.long(), lo.long()].sum(dim=-1)
 
 
+def eval_class_ordered(tables: torch.Tensor, hi: torch.Tensor,
+                       lo: torch.Tensor,
+                       precision: str = "bf16x2") -> torch.Tensor:
+    """The kernel's exact arithmetic in plain PyTorch: ``acc = acc +
+    term_g`` over g = 0 .. G-1 from zeros, each term the f32 entry, or
+    for "bf16" its round-to-nearest-even bf16 value.  The card's
+    ``eval_class`` equals it bitwise."""
+    if precision == "bf16":
+        tables = tables.to(torch.bfloat16).to(torch.float32)
+    acc = torch.zeros(hi.shape[0], dtype=torch.float32, device=hi.device)
+    for g in range(tables.shape[0]):
+        acc = acc + tables[g][hi[:, g].long(), lo[:, g].long()]
+    return acc
+
+
 def eval_class(tables: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
                precision: str = "bf16x2") -> torch.Tensor:
     """V[b] = sum_g tables[g, hi[b, g], lo[b, g]], (B,) f32.
 
     ``tables`` (G, H, L) f32, ``hi`` and ``lo`` (B, G) int32, any B.
     "f32" and "bf16x2" sum the exact f32 entries (bf16x2's ~2^-18
-    contract is met with room); "bf16" sums a round-to-nearest-even
-    bf16 copy of the table, accumulated in f32.  Out-of-range indices
-    give NaN on the card.
+    contract is met with room); "bf16" sums each entry rounded to bf16
+    (to nearest even), in f32.  On the card the sum runs in the fixed
+    order g = 0 .. G-1 (``eval_class_ordered``), and out-of-range
+    indices give NaN.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; "
@@ -101,8 +117,9 @@ def eval_class(tables: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
         return eval_class_reference(tables, hi, lo, precision)
     b, g = hi.shape
     _, h, l = tables.shape
-    if precision == "bf16":
-        tables = tables.to(torch.bfloat16)
+    if tables.numel() >= 2**31:
+        raise ValueError(f"eval_class: a class block of {tables.numel()} "
+                         "entries is past int32 indexing")
     out = torch.empty(b, dtype=torch.float32, device=hi.device)
     _launch("eval_class", hi.device, tables.data_ptr(),
             int(precision == "bf16"), hi.data_ptr(), lo.data_ptr(),
@@ -184,8 +201,9 @@ _ROUND_SYMS = (0, 3, 1)
 
 @lru_cache(maxsize=None)
 def fold_plan(n: int, feat0: int, g: int) -> np.ndarray:
-    """(3, g, 5) int32 gather plan of ``fold_class`` for one base-16
-    class of 16^k tables, k <= 4: row r, tuple t holds
+    """(3, g, 5) int32 plan of the three doubling rounds for one
+    base-16 class of 16^k tables, k <= 4, from which ``_fold_words``
+    (and through it ``fold_orbit_plan``) is derived: row r, tuple t holds
     ``[src, c_0, .., c_{k-1}]`` such that round r's transform reads
     tuple ``src`` at ``sum_d digit_d(e) * c_d`` for local index e
     (digit 0 the most significant).  Derived numerically by applying
@@ -220,11 +238,161 @@ def fold_plan(n: int, feat0: int, g: int) -> np.ndarray:
     return plan
 
 
+def _fold_k(n: int, feat0: int) -> int:
+    """k of the class at ``feat0``: its tables are 16^k."""
+    return _table_geometry(get_tuple_set(n))[3][feat0]
+
+
+def _fold_words(n: int, feat0: int, g: int) -> np.ndarray:
+    """(8, g * 16^k) int64: ``W[j][a]``, the class-local index that word
+    ``j = b0 + 2 b1 + 4 b2`` (round 0 applied b0 times after round 1 b1
+    times after round 2 b2 times) reads for output ``a``.  Output a's
+    orbit sum adds ``x[W[0][a]] .. x[W[7][a]]`` as
+    ``((l0 + l1) + (l2 + l3)) + ((l4 + l5) + (l6 + l7))``, the
+    reference's association order."""
+    plan = fold_plan(n, feat0, g)
+    k = _fold_k(n, feat0)
+    size = 16**k
+    a = np.arange(g * size, dtype=np.int64)
+
+    def image(r, idx):
+        p = plan[r, idx // size]
+        e = idx % size
+        j = sum(((e >> (4 * (k - 1 - d))) & 15) * p[:, 1 + d]
+                for d in range(k))
+        return p[:, 0].astype(np.int64) * size + j
+
+    words = []
+    for j in range(8):
+        x = a
+        for r in (2, 1, 0):  # innermost round first
+            if (j >> r) & 1:
+                x = image(r, x)
+        words.append(x)
+    return np.stack(words)
+
+
+# FOLD_CAYLEY[m][j] = i: word j after word m is word i (D4's table in
+# the basis of the words), so orbit member W[m][a] reads leaf j at
+# W[FOLD_CAYLEY[m][j]][a].  The same for every class; fold_orbit_plan
+# checks it over the whole index range, and csrc/fold_class.cu spells
+# it out in its FOLD_MEMBER lines.
+FOLD_CAYLEY = (
+    (0, 1, 2, 3, 4, 5, 6, 7),
+    (1, 0, 3, 2, 7, 6, 5, 4),
+    (2, 3, 0, 1, 6, 7, 4, 5),
+    (3, 2, 1, 0, 5, 4, 7, 6),
+    (4, 5, 6, 7, 2, 3, 0, 1),
+    (5, 4, 7, 6, 1, 0, 3, 2),
+    (6, 7, 4, 5, 0, 1, 2, 3),
+    (7, 6, 5, 4, 3, 2, 1, 0),
+)
+FOLD_MAX_SLOTS = 8  # tiles of one tile orbit: at most |D4|
+FOLD_ORBIT_WORDS = 4 + FOLD_MAX_SLOTS  # [slots, rep_begin, rep_end, 0, bases]
+
+
+def fold_swizzle(p: np.ndarray, k: int) -> np.ndarray:
+    """Shared-memory position of the kernel's orbit entry ``p`` (slot
+    ``p >> 2k``, tile entry ``p & (4^k - 1)``): the entry's 16-byte run
+    index has its low bits XORed with the slot and the entry's bits
+    5..7, which spreads an entry orbit's leaves over more banks.  An
+    involution; ``csrc/fold_class.cu::swizzle`` is the same map."""
+    s, l = p >> (2 * k), p & (4**k - 1)
+    x = ((l >> 5) ^ s) & 7 & ((4**k >> 2) - 1)
+    return (s << (2 * k)) | (l ^ (x << 2))
+
+
+def _tile_spread(l: np.ndarray, k: int) -> np.ndarray:
+    """Offset in a 16^k table of tile-local index ``l``: its k 2-bit
+    digits are the low halves of the table index's k 4-bit digits."""
+    return sum(((l >> (2 * (k - 1 - d))) & 3) << (4 * (k - 1 - d))
+               for d in range(k))
+
+
+@lru_cache(maxsize=None)
+def fold_orbit_plan(n: int, feat0: int, g: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """The ``fold_class`` kernel's plan for one base-16 class of 16^k
+    tables, k <= 4: ``(orbits, reps)``.
+
+    A *tile* is one tuple's 4^k entries that share the high two bits of
+    every digit; a word permutes digits and relabels tuples, so it maps
+    whole tiles onto tiles, and the class splits into *tile orbits* of
+    at most 8 tiles, closed under D4.  One block of the kernel stages a
+    tile orbit in shared memory, slot by slot, and writes it back.
+
+    ``orbits`` (T, 12) int32: per tile orbit ``[slots, rep_begin,
+    rep_end, 0, base_0 .. base_7]``, ``base_s`` the class-local index
+    of slot s's first entry (entry l of the slot lies at ``base_s +
+    spread(l)``).  ``reps`` (E, 8) int16: one row per entry orbit (its
+    least index is the representative), ``reps[rep_begin:rep_end]``
+    those of one tile orbit; word j's image of the representative sits
+    at slot ``q >> 2k``, entry ``q & (4^k - 1)`` for ``q =
+    fold_swizzle(reps[e, j], k)``, and at shared-memory position
+    ``reps[e, j]``.
+    Member j then sums the leaves ``x[p_{FOLD_CAYLEY[j][i]}]``.
+
+    Derived numerically from ``fold_plan``, and checked over the whole
+    index range: the Cayley table, words mapping tiles to tiles, and
+    every entry in a representative's orbit."""
+    words = _fold_words(n, feat0, g)
+    k = _fold_k(n, feat0)
+    size, tile = 16**k, 4**k
+    for m in range(8):
+        for j in range(8):
+            if not np.array_equal(words[j][words[m]],
+                                  words[FOLD_CAYLEY[m][j]]):
+                raise AssertionError(f"word {j} after word {m} is not word "
+                                     f"{FOLD_CAYLEY[m][j]}")
+    a = words[0]
+    e = a % size
+    hi_half = sum(((e >> (4 * (k - 1 - d) + 2)) & 3) << (2 * (k - 1 - d))
+                  for d in range(k))
+    low = sum(((e >> (4 * (k - 1 - d))) & 3) << (2 * (k - 1 - d))
+              for d in range(k))
+    tile_of = (a // size) * tile + hi_half  # tile id of every entry
+    n_tiles = g * tile
+    # each tile's first entry: its tuple's base plus the high halves
+    first = (np.arange(n_tiles) // tile) * size + (
+        _tile_spread(np.arange(n_tiles) % tile, k) << 2)
+    tile_img = tile_of[words]  # (8, entries): tile of each image
+    if not np.array_equal(tile_img, tile_img[:, first][:, tile_of]):
+        raise AssertionError("a word splits a tile")
+    orbit_key = tile_img[:, first].min(axis=0)  # least tile of the orbit
+    keys, orbit_of_tile = np.unique(orbit_key, return_inverse=True)
+    slot_of_tile = np.zeros(n_tiles, np.int64)
+    orbits = np.zeros((len(keys), FOLD_ORBIT_WORDS), np.int32)
+    for o in range(len(keys)):
+        members = np.flatnonzero(orbit_of_tile == o)
+        if len(members) > FOLD_MAX_SLOTS:
+            raise AssertionError("a tile orbit of more than 8 tiles")
+        slot_of_tile[members] = np.arange(len(members))
+        orbits[o, 0] = len(members)
+        orbits[o, 4: 4 + len(members)] = first[members]
+    rep = words.min(axis=0) == a
+    pos = slot_of_tile[tile_img] * tile + low[words]  # (8, entries)
+    rep_idx = np.flatnonzero(rep)
+    order = np.argsort(orbit_of_tile[tile_of[rep_idx]], kind="stable")
+    rep_idx = rep_idx[order]
+    counts = np.bincount(orbit_of_tile[tile_of[rep_idx]],
+                         minlength=len(keys))
+    ends = np.cumsum(counts)
+    orbits[:, 1], orbits[:, 2] = ends - counts, ends
+    reps = fold_swizzle(pos[:, rep_idx].T, k).astype(np.int16)
+    covered = np.zeros(g * size, bool)
+    covered[words[:, rep_idx]] = True
+    if not covered.all():
+        raise AssertionError("representatives do not cover the class")
+    return orbits, np.ascontiguousarray(reps)
+
+
 @lru_cache(maxsize=None)
 def _fold_plan_on(n: int, feat0: int, g: int, device: torch.device
-                  ) -> torch.Tensor:
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     # moved to the device once (a per-call host copy would synchronise)
-    return torch.from_numpy(fold_plan(n, feat0, g)).to(device)
+    orbits, reps = fold_orbit_plan(n, feat0, g)
+    return (torch.from_numpy(orbits).to(device),
+            torch.from_numpy(reps).to(device))
 
 
 def fold_class(ts: TupleSet, feat0: int, g: int, pair: torch.Tensor
@@ -241,11 +409,15 @@ def fold_class(ts: TupleSet, feat0: int, g: int, pair: torch.Tensor
                         f"float32, got {tuple(pair.shape)} {pair.dtype}")
     if _check_device("fold_class", pair) == "cpu":
         return symmetrize_class_sum(ts, feat0, g, pair)
-    plan = _fold_plan_on(ts.n, feat0, g, pair.device)
+    if pair.data_ptr() % 16:
+        raise ValueError("fold_class: the kernel moves 16-byte runs; pair "
+                         "must start 16-byte aligned")
+    orbits, reps = _fold_plan_on(ts.n, feat0, g, pair.device)
     out = torch.empty_like(pair)
     rows = pair.numel() // (g * size)
     _launch("fold_class", pair.device, pair.data_ptr(), out.data_ptr(),
-            plan.data_ptr(), rows, g, ks[feat0])
+            orbits.data_ptr(), reps.data_ptr(), orbits.shape[0], rows, g,
+            ks[feat0])
     fold_class.launches += 1
     return out
 

@@ -2,7 +2,7 @@
 
 The reference's cadence, measured in completed episodes: ma-100
 points, per-1000 summaries with tile-reach shares and the best board,
-checkpoints through the shared ``tpu2048.store.checkpoint``,
+checkpoints in the reference's format (``store/checkpoint.py``),
 best-game saving, cooperative cancellation.  The hot loop is one
 K-step train segment over N lockstep envs; the host reads the
 device-resident metrics between segments.
@@ -22,20 +22,20 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from tpu2048.config import AgentConfig, TrainConfig
-from tpu2048.obs.jobs import Job
-from tpu2048.obs.logging import Logger
-from tpu2048.obs.metrics import MetricsWriter
-from tpu2048.obs.profiler import Timer
-from tpu2048.store import checkpoint as ckpt
-from tpu2048.store.artifacts import ArtifactStore
-
 from ..agent import td
+from ..config import AgentConfig, TrainConfig
 from ..draws import TorchDraws
 from ..engine import core as engine
 from ..features.canonical import (from_dense_table, is_canonical,
                                   to_dense_table)
 from ..features.ntuple import get_tuple_set
+from ..obs.jobs import Job
+from ..obs.logging import Logger
+from ..obs.metrics import MetricsWriter
+from ..obs.profiler import Timer
+from ..store import checkpoint as ckpt
+from ..store.artifacts import ArtifactStore
+from . import card_device
 
 TILE_NAMES = [1 << e for e in range(10, 17)]  # 1024 .. 65536
 # the generator's state in a checkpoint's extras (the reference keeps
@@ -57,9 +57,10 @@ def _np(x: torch.Tensor) -> np.ndarray:
 class Trainer:
     """Owns one agent's training session on one device.
 
-    ``device`` defaults to the CUDA card when there is one, else the
-    CPU.  Draws come from a ``torch.Generator`` on the device seeded
-    with ``tcfg.seed``; its state is saved with every checkpoint.
+    ``device`` defaults to the CUDA card, and without one the trainer
+    raises: the CPU runs only when asked for (``device="cpu"``).
+    Draws come from a ``torch.Generator`` on the device seeded with
+    ``tcfg.seed``; its state is saved with every checkpoint.
     """
 
     def __init__(
@@ -83,8 +84,7 @@ class Trainer:
         self.store = store
         self.log = logger or Logger(console=True)
         self.ts = get_tuple_set(acfg.n)
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = card_device(device, "Trainer")
         self.metrics_writer = (MetricsWriter(store, name)
                                if store is not None else None)
         self.train_history: list = []

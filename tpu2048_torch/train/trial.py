@@ -21,14 +21,14 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from tpu2048.config import SearchConfig
-from tpu2048.obs.logging import Logger
-
+from ..config import SearchConfig
 from ..draws import Draws, TorchDraws
 from ..engine import core as engine
 from ..engine import fast as engf
 from ..features import ntuple
+from ..obs.logging import Logger
 from ..search.expectimax import make_compacted_estimator
+from . import card_device
 
 
 class TrialResult(NamedTuple):
@@ -182,8 +182,9 @@ def trial(
     draws: Optional[Draws] = None,
 ) -> TrialResult:
     """Play ``num`` games to completion on the device of ``weights``
-    (or ``device`` for the baselines, whose weights may be None) and
-    aggregate statistics.
+    (or ``device`` for the baselines, whose weights may be None: the
+    CUDA card unless ``device`` says otherwise; without a card that
+    raises) and aggregate statistics.
 
     ``policy`` selects the estimator: "value" (the agent's n-tuple
     table) or the baselines "random" / "score".  Draws come from
@@ -192,9 +193,8 @@ def trial(
     """
     scfg = search or SearchConfig(depth=0)
     log = logger or Logger(console=False)
-    if weights is not None:
-        device = weights.device
-    device = torch.device(device or "cpu")
+    device = (weights.device if weights is not None
+              else card_device(device, "trial"))
     if draws is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
