@@ -26,10 +26,19 @@ Phases, one line of output each (the kernel phases one per check):
   5. grad_class: the class-gradient kernel against its plain version
      at the three class shapes, B = 8192 and a ragged B = 1001, half
      the rows invalid, with random indices and with every row on one
-     entry (a fresh start's collision): hits bitwise, dsum within
-     hits * 2^-23 * (sum of |dw| at the entry), the bound between two
-     f32 summation orders; then kernel, plain and library
-     (``index_add_`` pair) times beside the bound;
+     entry (a fresh start's collision), and on the train step's own
+     rows (``prev_idx`` split into hi and lo, with ``prev_valid``) one
+     step after a fresh start at n=5, 3 and 2 (the three shapes): one
+     contiguous (2, G, H, L) pair, hits bitwise, dsum within hits *
+     2^-23 * (sum of |dw| at the entry), the bound between two f32
+     summation orders, and the whole pair bitwise with dyadic dw on
+     the same rows; a valid row's bad index shows as NaN; then kernel,
+     plain and library (``index_add_`` pair) times beside the bound,
+     the earlier reading and each case's collision profile (distinct
+     entries per tuple, the most rows on one entry) for the random,
+     colliding and fresh-start rows, and, after phase 8, the same
+     check and times on the rows of the trainer's last step
+     (mid-training);
   6. fold_class: the D4 class-fold kernel bitwise against the plain
      ``symmetrize_class_sum`` on random pairs (the 16^4 class at n=4
      and n=5, the 16^3 class at n=3, the 16^2 class at n=2); then
@@ -97,15 +106,16 @@ SHAPES = [(17, 256, 256), (52, 64, 64), (24, 16, 16)]
 PRECISIONS = ["bf16x2", "f32", "bf16"]
 REL_TOL = 2.0**-20  # of sum |terms|: f32 summation order only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published, at 700 W
-# the kernels' earlier readings at the same shapes, before the
-# redesign of eval_class and fold_class (PERF.md section 6, NVIDIA H100
+# the kernels' earlier readings at the same shapes, before each one's
+# redesign for the H100 (PERF.md section 6, NVIDIA H100
 # 80GB HBM3, 700.00 W), printed on the *_time lines beside this run's
 # (not in the kernels line, whose numbers are all of this run)
 EARLIER_MS = {("eval_class", "bf16", 32768): 0.010267,
               ("eval_class", "bf16x2", 32768): 0.007419,
               ("eval_class", "f32", 32768): 0.007429,
               ("eval_class", "bf16", SEARCH_B): 0.4040,
-              ("grad_class", "random", TRAIN_B): 0.009717,
+              ("grad_class", "random", TRAIN_B): 0.01020,
+              ("grad_class", "collide", TRAIN_B): 0.02140,
               ("fold_class", "n=5", 17): 0.062832}
 
 
@@ -378,6 +388,110 @@ def phase_slice() -> int:
     return launches
 
 
+def _grad_check(hi, lo, dw, valid, h, l, what: str) -> tuple:
+    """``grad_class`` on these rows against its plain version: one
+    contiguous (2, G, H, L) pair, hits bitwise, dsum within hits *
+    2^-23 * (sum of |dw| at the entry), and with dyadic dw on the same
+    rows (every sum exact in any order) the whole pair bitwise.
+    Returns (largest |dsum error|, largest error over its bound)."""
+    from tpu2048_torch.ops import kernels
+
+    b, g = hi.shape
+    pair = kernels.grad_class(hi, lo, dw, valid, h, l)
+    torch.cuda.synchronize()
+    if pair.shape != (2, g, h, l) or not pair.is_contiguous():
+        raise AssertionError(f"grad_class {what}: not one contiguous "
+                             f"(2, {g}, {h}, {l}) pair")
+    want = kernels.grad_class_reference(hi, lo, dw, valid, h, l)
+    if not torch.equal(pair[1], want[1]):
+        raise AssertionError(f"grad_class {what}: hits differ from the "
+                             "plain version")
+    mass = kernels.grad_class_reference(hi, lo, dw.abs(), valid, h, l)[0]
+    err = (pair[0] - want[0]).abs()
+    bound = 2.0**-23 * want[1] * mass
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"grad_class {what}: dsum outside hits * 2^-23 "
+                             "* sum|dw|")
+    dy = torch.from_numpy(_dyadic(b, b + g)).to(hi.device)
+    if not torch.equal(kernels.grad_class(hi, lo, dy, valid, h, l),
+                       kernels.grad_class_reference(hi, lo, dy, valid, h, l)):
+        raise AssertionError(f"grad_class {what}: not bitwise the plain "
+                             "version with dyadic dw")
+    return float(err.max()), float((err / bound.clamp(min=1e-38)).max())
+
+
+def _collisions(hi, lo, valid, l) -> dict:
+    """The rows' collision profile: distinct entries per tuple (least,
+    median, most) among the valid rows, and the most rows on one entry."""
+    flat = (hi.long() * l + lo.long())[valid]
+    distinct, most = [], 0
+    for t in range(hi.shape[1]):
+        _, counts = torch.unique(flat[:, t], return_counts=True)
+        distinct.append(int(counts.numel()))
+        most = max(most, int(counts.max()) if counts.numel() else 0)
+    return {"valid_rows": int(valid.sum()),
+            "distinct_per_tuple": [min(distinct), int(np.median(distinct)),
+                                   max(distinct)],
+            "most_rows_on_one_entry": most}
+
+
+def _train_rows(n: int, state=None) -> tuple:
+    """(hi, lo, dw, valid, h, l) of the train step's own rows for its
+    16^2..16^4 class: ``prev_idx`` split into hi and lo, with
+    ``prev_valid``, from ``state``, or else from one step of TRAIN_B
+    envs after a fresh start; dw random from a seed."""
+    from tpu2048_torch.agent import td
+    from tpu2048_torch.config import AgentConfig, TrainConfig
+    from tpu2048_torch.draws import TorchDraws
+    from tpu2048_torch.features.ntuple import get_tuple_set
+    from tpu2048_torch.ops import onehot as oh
+
+    ts = get_tuple_set(n)
+    if state is None:
+        acfg, tcfg = AgentConfig(n=n), TrainConfig(num_envs=TRAIN_B)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(n)
+        draws = TorchDraws(gen)
+        state = td.init_td_state(ts, acfg, tcfg, draws, "cuda")
+        state, _ = td.make_train_step(ts, acfg, tcfg, draws)(state)
+    c = oh.build_table_classes(ts).matmul[0]
+    hi, lo = oh._hi_lo(ts, state.prev_idx.reshape(-1, ts.num_feat), c)
+    b = hi.shape[0]
+    dw = torch.from_numpy(np.random.default_rng(b).standard_normal(b)
+                          .astype(np.float32)).to(hi.device)
+    return hi, lo, dw, state.prev_valid.clone(), c.h, c.l
+
+
+def _grad_time(case: str, args: list, h: int, l: int) -> dict:
+    """Kernel, plain and library times of ``grad_class`` on these rows,
+    the library call checked, and the bound."""
+    from tpu2048_torch.ops import kernels
+
+    hi, _lo, _dw, valid = args
+    b, g = hi.shape
+    k = _device_ms(lambda: kernels.grad_class(*args, h, l))
+    pl = _device_ms(lambda: kernels.grad_class_reference(*args, h, l))
+    lib = _grad_library(*args, h, l)
+    if not torch.equal(lib()[1], kernels.grad_class_reference(*args, h, l)[1]):
+        raise AssertionError("the index_add_ pair's hits differ")
+    q = _device_ms(lib)
+    nvalid = int(valid.sum())
+    # valid rows' indices and dw, the mask, and the (2, G, H, L) pair
+    nbytes = 2 * nvalid * g * 4 + nvalid * 4 + b + 2 * g * h * l * 4
+    row = {"case": case, "shape": [g, h, l], "batch": b, "ms": k[0],
+           "plain_ms": pl[0], "library_ms": q[0],
+           "bound_ms": _bound_ms(nbytes), "bytes": nbytes,
+           "bound_share": _bound_ms(nbytes) / k[0]}
+    _line("grad_class_time", **row, **_collisions(*args[:2], valid, l),
+          earlier_ms=EARLIER_MS.get(("grad_class", case, b)),
+          kernel_ms_median_min_max=list(k),
+          plain_ms_median_min_max=list(pl),
+          library="two index_add_ into one zeroed pair, flat indices made "
+                  "outside the call",
+          library_ms_median_min_max=list(q))
+    return row
+
+
 def phase_grad_class() -> dict:
     from tpu2048_torch.ops import kernels
 
@@ -386,78 +500,69 @@ def phase_grad_class() -> dict:
     for g, h, l in SHAPES:
         for b in (TRAIN_B, RAGGED_B):
             for collide in (False, True):
-                hi, lo, dw, valid = _grad_inputs(g, h, l, b, b + g, dev,
-                                                 collide)
-                dsum, hits = kernels.grad_class(hi, lo, dw, valid, h, l)
-                torch.cuda.synchronize()
-                want_d, want_h = kernels.grad_class_reference(
-                    hi, lo, dw, valid, h, l)
-                if not torch.equal(hits, want_h):
-                    raise AssertionError(f"grad_class {g,h,l} B={b}: hits "
-                                         "differ from the plain version")
-                mass = kernels.grad_class_reference(hi, lo, dw.abs(), valid,
-                                                    h, l)[0]
-                err = (dsum - want_d).abs()
-                bound = 2.0**-23 * hits * mass
-                if not bool((err <= bound).all()):
-                    raise AssertionError(f"grad_class {g,h,l} B={b}: dsum "
-                                         "outside hits * 2^-23 * sum|dw|")
-                worst = max(worst, float(err.max()))
-                worst_ratio = max(worst_ratio, float(
-                    (err / bound.clamp(min=1e-38)).max()))
+                e, r = _grad_check(*_grad_inputs(g, h, l, b, b + g, dev,
+                                                 collide), h, l,
+                                   f"{g,h,l} B={b} collide={collide}")
+                worst, worst_ratio = max(worst, e), max(worst_ratio, r)
+    train_fresh = {n: _train_rows(n) for n in (5, 3, 2)}  # the three shapes
+    for n, (*args, h, l) in train_fresh.items():
+        e, r = _grad_check(*args, h, l, f"n={n} train rows, fresh start")
+        worst, worst_ratio = max(worst, e), max(worst_ratio, r)
+    hi, lo, dw, valid = _grad_inputs(3, 64, 64, 300, 5, dev)
+    valid[:2] = torch.tensor([False, True])
+    hi[0] = -7  # an invalid row's indices are never used
+    lo[1, 2] = 64
+    dsum = kernels.grad_class(hi, lo, dw, valid, 64, 64)[0]
+    if not bool(dsum[2, 0, 0].isnan()) or int(dsum.isnan().sum()) != 1:
+        raise AssertionError("grad_class: a valid row's bad index does not "
+                             "show as NaN at dsum[g, 0, 0] alone")
     _line("grad_class_check", max_abs_err=worst,
           max_err_over_bound=worst_ratio, bound="hits*2^-23*sum|dw|",
           shapes=SHAPES, batches=[TRAIN_B, RAGGED_B],
-          cases=["random", "all rows on one entry"], hits="bitwise")
+          cases=["random", "all rows on one entry",
+                 "train rows one step after a fresh start (n=5, 3, 2)"],
+          hits="bitwise", dyadic_dw="bitwise", layout="(2, G, H, L)",
+          bad_index="NaN")
     g, h, l = SHAPES[0]
-    rows = []
-    for case, collide in (("random", False), ("collide", True)):
-        args = _grad_inputs(g, h, l, TRAIN_B, 11, dev, collide)
-        k = _device_ms(lambda: kernels.grad_class(*args, h, l))
-        pl = _device_ms(lambda: kernels.grad_class_reference(*args, h, l))
-        lib = _grad_library(*args, h, l)
-        want_h = kernels.grad_class_reference(*args, h, l)[1]
-        if not torch.equal(lib()[1], want_h):
-            raise AssertionError("the index_add_ pair's hits differ")
-        q = _device_ms(lib)
-        hi, _lo, _dw, valid = args
-        nvalid = int(valid.sum())
-        # valid rows' indices and dw, the mask, and both (G, H, L) blocks
-        nbytes = (2 * nvalid * g * 4 + nvalid * 4 + valid.numel()
-                  + 2 * g * h * l * 4)
-        row = {"case": case, "shape": [g, h, l], "batch": TRAIN_B,
-               "ms": k[0], "plain_ms": pl[0], "library_ms": q[0],
-               "bound_ms": _bound_ms(nbytes), "bytes": nbytes,
-               "bound_share": _bound_ms(nbytes) / k[0]}
-        rows.append(row)
-        _line("grad_class_time", **row,
-              earlier_ms=EARLIER_MS.get(("grad_class", case, TRAIN_B)),
-              kernel_ms_median_min_max=list(k),
-              plain_ms_median_min_max=list(pl),
-              library="two index_add_ on precomputed flat indices",
-              library_ms_median_min_max=list(q))
+    rows = [_grad_time(case, _grad_inputs(g, h, l, TRAIN_B, 11, dev, collide),
+                       h, l)
+            for case, collide in (("random", False), ("collide", True))]
+    *args, h, l = train_fresh[5]
+    rows.append(_grad_time("train_fresh", args, h, l))
     return {"max_abs_err": worst, "ms": rows[0]["ms"],
             "plain_ms": rows[0]["plain_ms"],
             "library_ms": rows[0]["library_ms"],
             "bound_ms": rows[0]["bound_ms"], "instances": rows}
 
 
+def phase_grad_trained(state, kstat: dict) -> None:
+    """Phase 5 on the rows of the phase-8 trainer's last step: checked
+    and timed like the others, its row added to ``kstat``."""
+    *args, h, l = _train_rows(5, state)
+    e, r = _grad_check(*args, h, l, "n=5 train rows mid-training")
+    kstat["max_abs_err"] = max(kstat["max_abs_err"], e)
+    _line("grad_class_check", case="train_mid", max_abs_err=e,
+          max_err_over_bound=r, hits="bitwise", dyadic_dw="bitwise")
+    kstat["instances"].append(_grad_time("train_mid", args, h, l))
+
+
 def _grad_library(hi, lo, dw, valid, h, l):
     """The one-call library form of ``grad_class``: two ``index_add_``
-    calls on flat indices made here; the zeroed blocks and the invalid
-    rows' zeroed dw are made inside the call."""
+    calls into the halves of one zeroed pair, on flat indices made
+    here; the pair and the invalid rows' zeroed dw are made inside the
+    call."""
     g = hi.shape[1]
     gi = torch.arange(g, device=hi.device)
     flat = ((gi * h + hi.long()) * l + lo.long()).reshape(-1)
     count = valid.to(torch.float32)[:, None].expand(-1, g).reshape(-1)
 
     def call():
-        dsum = torch.zeros(g * h * l, dtype=torch.float32, device=hi.device)
-        hits = torch.zeros_like(dsum)
+        pair = torch.zeros((2, g * h * l), dtype=torch.float32,
+                           device=hi.device)
         w = torch.where(valid, dw, 0.0)[:, None].expand(-1, g).reshape(-1)
-        dsum.index_add_(0, flat, w)
-        hits.index_add_(0, flat, count)
-        return dsum.view(g, h, l), hits.view(g, h, l)
+        pair[0].index_add_(0, flat, w)
+        pair[1].index_add_(0, flat, count)
+        return pair.view(2, g, h, l)
 
     return call
 
@@ -568,7 +673,7 @@ class _StopAfter:
         return self.left < 0
 
 
-def phase_train(name: str) -> dict:
+def phase_train(name: str) -> tuple:
     from tpu2048_torch.config import AgentConfig, TrainConfig
     from tpu2048_torch.engine.core import np_move
     from tpu2048_torch.features.ntuple import get_tuple_set
@@ -640,7 +745,7 @@ def phase_train(name: str) -> dict:
           ma100_last=hist[-1] if hist else None, ma100_points=len(hist),
           launches=launches, trial_avg_score=float(games.scores.mean()),
           timer=timer.report().splitlines())
-    return launches
+    return launches, st
 
 
 def phase_search() -> tuple:
@@ -744,7 +849,8 @@ def main() -> int:
     kstats["grad_class"] = phase_grad_class()
     kstats["fold_class"] = phase_fold_class()
     phase_train_step()
-    train = phase_train("smoke")
+    train, trained = phase_train("smoke")
+    phase_grad_trained(trained, kstats["grad_class"])
     search, search_check = phase_search()
     kstats["eval_class"]["instances"].append(search_check)
     loaded = sorted(m for m in sys.modules if m == "jax" or m == "tpu2048"

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's default train step spends its time on a CUDA card.
 
-    python3 scripts/torch_train_profile.py [--out FILE]
+    python3 scripts/torch_train_profile.py [--out FILE] [--root DIR]
 
 1. Trains the shipped configuration (n=5, 8192 envs, K=64 steps per
    segment) from a fresh state in ``ROUNDS`` rounds of four runs,
@@ -15,10 +15,26 @@
    kernel, the kernel launches per step, the share of the device time
    taken by the ported kernels, and the device's busy and idle share
    of the profiled wall time.
+3. From the same trace, the class-gradient stretch of each step: the
+   fills just before the ``grad_class`` scatter (torch's fill kernels,
+   or the port's own ``zero_pair``), the scatter, whatever runs
+   between it and ``fold_class`` (a copy, where the pair is stacked),
+   and the fold; device µs per step of each part, and the span from
+   the first fill's start to the fold's end.  Then ``CALLS``
+   ``grad_class`` calls at (17, 256, 256), B = 8192, half the rows
+   valid, with random indices and with every row on one entry, queued
+   behind a sleep kernel so that they run back to back: per call the
+   fills, the scatter (and its part after the fill has ended: a
+   scatter launched as the fill's programmatic dependent starts early
+   and waits), the card's idle time and overlap inside the call, and
+   the period from one call's end to the next.
 
-Draws come from a ``torch.Generator`` seeded with 0.  The full result
-is written as JSON to ``--out`` (default
-``chiprun_out/train_profile.json``).  Needs one CUDA card; imports no jax.
+``--root`` names the checkout whose ``tpu2048_torch`` is profiled (by
+default the one this script lies in), so one copy of the script
+measures two checkouts alike.  Draws come from a ``torch.Generator``
+seeded with 0.  The full result is written as JSON to ``--out``
+(default ``chiprun_out/train_profile.json``).  Needs one CUDA card;
+imports no jax.
 """
 
 from __future__ import annotations
@@ -26,21 +42,19 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from tpu2048_torch.config import AgentConfig, TrainConfig  # noqa: E402
-from tpu2048_torch.agent import td  # noqa: E402
-from tpu2048_torch.draws import TorchDraws  # noqa: E402
-from tpu2048_torch.features.ntuple import get_tuple_set  # noqa: E402
-
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEGMENTS = 4  # timed segments of each ABBA run
 ROUNDS = 2  # ABBA rounds
+CALLS = 20  # grad_class calls profiled back to back, per case
 
 # kind of a CUDA kernel, by the first pattern its name contains
 KINDS = [
@@ -57,11 +71,16 @@ KINDS = [
     ("scan", "cumsum"),
     ("CatArray", "cat/stack"),
     ("copy", "copy/convert"),
+    ("FillFunctor", "fill/zero"),
+    ("zero_pair", "fill/zero"),  # grad_class's own fill of its pair
     ("fill", "fill/zero"),
     ("Memset", "fill/zero"),
     ("where", "where"),
     ("elementwise", "elementwise"),
 ]
+FILL = "fill/zero"
+ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+              torch.profiler.ProfilerActivity.CUDA]
 
 
 def _device_us(evt) -> float:
@@ -78,7 +97,118 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def _fresh(ts, tcfg, mode):
+def _device_events(prof) -> list:
+    """(name, start µs, duration µs) of every kernel, memset and copy
+    the card ran under ``prof``, in start order, from its chrome
+    trace."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = [(e["name"], float(e["ts"]), float(e.get("dur", 0.0)))
+              for e in trace["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+    return sorted(events, key=lambda e: e[1])
+
+
+def _grad_parts(events: list) -> list:
+    """For each ``grad_class`` kernel in ``events``: the fills right
+    before it, the kernel, and, where a ``fold_class`` follows before
+    the next ``grad_class``, what runs between them and the fold."""
+    parts = []
+    at = [i for i, e in enumerate(events) if "grad_class" in e[0]]
+    for j, i in enumerate(at):
+        f = i
+        while f > 0 and _kind(events[f - 1][0]) == FILL:
+            f -= 1
+        end = at[j + 1] if j + 1 < len(at) else len(events)
+        fold = next((k for k in range(i + 1, end)
+                     if "fold_class" in events[k][0]), None)
+        parts.append({"fills": events[f:i], "grad": events[i],
+                      "between": events[i + 1: fold] if fold else [],
+                      "fold": events[fold] if fold else None})
+    return parts
+
+
+def _stretch_summary(parts: list) -> dict:
+    """Per-step means of the class-gradient stretch's parts."""
+    def mean(xs):
+        return statistics.fmean(xs) if xs else 0.0
+
+    spans = [p["fold"][1] + p["fold"][2] - (p["fills"] or [p["grad"]])[0][1]
+             for p in parts if p["fold"]]
+    return {
+        "steps": len(parts),
+        "fills_per_step": mean([len(p["fills"]) for p in parts]),
+        "fill_us": mean([sum(e[2] for e in p["fills"]) for p in parts]),
+        "grad_class_us": mean([p["grad"][2] for p in parts]),
+        "between_launches_per_step": mean([len(p["between"]) for p in parts]),
+        "between_us": mean([sum(e[2] for e in p["between"]) for p in parts]),
+        "between_kernels": sorted({e[0][:80] for p in parts
+                                   for e in p["between"]}),
+        "fold_class_us": mean([p["fold"][2] for p in parts if p["fold"]]),
+        "span_fill_to_fold_end_us": mean(spans),
+    }
+
+
+def _grad_inputs(g, h, l, b, seed, collide):
+    rng = np.random.default_rng(seed)
+    hi = rng.integers(0, h, (b, g)).astype(np.int32)
+    lo = rng.integers(0, l, (b, g)).astype(np.int32)
+    if collide:  # a fresh start: every row on one entry of each table
+        hi[:] = lo[:] = 0
+    dw = rng.standard_normal(b).astype(np.float32)
+    valid = rng.random(b) < 0.5
+    return [torch.from_numpy(a).cuda() for a in (hi, lo, dw, valid)]
+
+
+def _grad_call_profile(kernels, collide: bool) -> dict:
+    """``CALLS`` grad_class calls queued behind a sleep kernel, traced:
+    per call the fills, the scatter, the idle gaps inside the call,
+    and the period from one call's end to the next."""
+    g, h, l = 17, 256, 256
+    args = _grad_inputs(g, h, l, 8192, 11, collide)
+    kernels.grad_class(*args, h, l)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(CALLS):
+            kernels.grad_class(*args, h, l)
+        torch.cuda.synchronize()
+    parts = _grad_parts(_device_events(prof))
+    calls = []
+    for p in parts:
+        spans = sorted((e[1], e[1] + e[2]) for e in p["fills"] + [p["grad"]])
+        covered, reach = 0.0, spans[0][0]
+        for a, b in spans:  # the union of the call's kernels on the card
+            covered += max(0.0, b - max(a, reach))
+            reach = max(reach, b)
+        fill_end = max((e[1] + e[2] for e in p["fills"]), default=0.0)
+        end = p["grad"][1] + p["grad"][2]
+        calls.append({
+            "fills": len(p["fills"]),
+            "fill_us": sum(e[2] for e in p["fills"]),
+            "scatter_us": p["grad"][2],
+            # the scatter after the last fill has ended: with a
+            # programmatic dependent launch the kernel starts earlier
+            # and waits for the fill
+            "scatter_after_fill_us": end - max(p["grad"][1], fill_end),
+            "idle_us": reach - spans[0][0] - covered,
+            "overlap_us": sum(b - a for a, b in spans) - covered,
+            "span_us": reach - spans[0][0], "end_us": end})
+    periods = [b["end_us"] - a["end_us"] for a, b in zip(calls, calls[1:])]
+    out = {"case": "collide" if collide else "random", "shape": [g, h, l],
+           "batch": 8192, "calls": len(calls),
+           "fills_per_call": statistics.fmean(c["fills"] for c in calls),
+           "period_us_median": statistics.median(periods)}
+    for key in ("fill_us", "scatter_us", "scatter_after_fill_us", "idle_us",
+                "overlap_us", "span_us"):
+        out[key + "_median"] = statistics.median(c[key] for c in calls)
+    return out
+
+
+def _fresh(td, TorchDraws, AgentConfig, ts, tcfg, mode):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     draws = TorchDraws(gen)
@@ -90,24 +220,38 @@ def _fresh(ts, tcfg, mode):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="chiprun_out/train_profile.json")
+    ap.add_argument("--root", default=REPO,
+                    help="checkout whose tpu2048_torch is profiled")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from tpu2048_torch.agent import td
+    from tpu2048_torch.config import AgentConfig, TrainConfig
+    from tpu2048_torch.draws import TorchDraws
+    from tpu2048_torch.features.ntuple import get_tuple_set
+    from tpu2048_torch.ops import kernels
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(f"card: {card}", flush=True)
+    print(f"root: {os.path.abspath(args.root)} (package at "
+          f"{os.path.dirname(kernels.__file__)})", flush=True)
     tcfg = TrainConfig()
     ts = get_tuple_set(AgentConfig().n)
     steps = tcfg.steps_per_call
 
+    def fresh(mode):
+        return _fresh(td, TorchDraws, AgentConfig, ts, tcfg, mode)
+
     for mode in ("gather", "auto"):  # first use: kernel build, caches
-        st, seg = _fresh(ts, tcfg, mode)
+        st, seg = fresh(mode)
         seg(st)
     runs = []
     for mode in ("gather", "auto", "auto", "gather") * ROUNDS:
-        st, seg = _fresh(ts, tcfg, mode)
+        st, seg = fresh(mode)
         st = seg(st)  # warm-up segment: the first episodes
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -122,13 +266,11 @@ def main() -> int:
                      "episodes": int(st.metrics.episodes)})
         print(f"abba: {json.dumps(runs[-1])}", flush=True)
 
-    st, seg = _fresh(ts, tcfg, "auto")
+    st, seg = fresh("auto")
     for _ in range(2):
         st = seg(st)
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
         t0 = time.perf_counter()
         st = seg(st)
         torch.cuda.synchronize()
@@ -163,10 +305,19 @@ def main() -> int:
         print(f"kind: {json.dumps(row)}", flush=True)
     for e in table[:20]:
         print(f"kernel: {json.dumps(e)}", flush=True)
+    stretch = _stretch_summary(_grad_parts(_device_events(prof)))
+    print(f"grad_stretch: {json.dumps(stretch)}", flush=True)
+    del prof
+
+    calls = [_grad_call_profile(kernels, collide) for collide in (False, True)]
+    for c in calls:
+        print(f"grad_call: {json.dumps(c)}", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump({"abba": runs, "profile": summary, "kinds": kinds,
-                   "kernels": table}, f, indent=1)
+        json.dump({"root": os.path.abspath(args.root), "abba": runs,
+                   "profile": summary, "kinds": kinds, "kernels": table,
+                   "grad_stretch": stretch, "grad_calls": calls}, f,
+                  indent=1)
     return 0
 
 

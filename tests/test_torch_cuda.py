@@ -167,10 +167,88 @@ def test_grad_class_kernel_flags_bad_index():
     dev = needs_card()
     hi, lo, dw, valid = _grad_inputs(3, 64, 64, 300, 5, dev)
     valid[:2] = torch.tensor([False, True])
-    hi[0] = -7  # an invalid row's indices are never read
+    hi[0] = -7  # an invalid row's indices are never used
     lo[1, 2] = 64
     dsum, _ = kernels.grad_class(hi, lo, dw, valid, 64, 64)
     assert bool(dsum[2, 0, 0].isnan()) and int(dsum.isnan().sum()) == 1
+
+
+def _dyadic_dw(b, seed, dev):
+    """Integers in [-40, 40] x 2^-12: every sum of up to 2^12 of them
+    is exact in f32, so dsum is the same in any summation order."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        (rng.integers(-40, 41, b) * 2.0**-12).astype(np.float32)).to(dev)
+
+
+def test_grad_class_returns_the_fold_pair():
+    """One contiguous (2, G, H, L) tensor, dsum then hits, that the
+    fold takes as (2, G, H * L) without a copy."""
+    dev = needs_card()
+    g, h, l = SHAPES[0]
+    hi, lo, dw, valid = _grad_inputs(g, h, l, 1001, 1, dev)
+    pair = kernels.grad_class(hi, lo, dw, valid, h, l)
+    assert pair.shape == (2, g, h, l) and pair.dtype == torch.float32
+    assert pair.is_contiguous() and pair.data_ptr() % 16 == 0
+    dsum, hits = pair
+    assert dsum.data_ptr() == pair.data_ptr()
+    assert hits.data_ptr() == pair.data_ptr() + 4 * g * h * l
+    want = kernels.grad_class_reference(hi, lo, dw, valid, h, l)
+    assert want.shape == pair.shape and want.is_contiguous()
+    assert torch.equal(hits, want[1])
+    assert pair.view(2, g, h * l).data_ptr() == pair.data_ptr()
+
+
+@pytest.mark.parametrize("g,h,l", SHAPES)
+@pytest.mark.parametrize("b", [8192, 1001])
+@pytest.mark.parametrize("collide", [False, True])
+def test_grad_class_kernel_bitwise_with_dyadic_dw(g, h, l, b, collide):
+    dev = needs_card()
+    hi, lo, _dw, valid = _grad_inputs(g, h, l, b, b + g + 1, dev, collide)
+    dw = _dyadic_dw(b, g, dev)
+    got = kernels.grad_class(hi, lo, dw, valid, h, l)
+    assert torch.equal(got, kernels.grad_class_reference(hi, lo, dw, valid,
+                                                         h, l))
+
+
+@pytest.mark.parametrize("distinct", [1, 2, 5, 32])
+def test_grad_class_kernel_groups_colliding_lanes(distinct):
+    """Every 32 consecutive rows (one warp's lanes) hit exactly
+    ``distinct`` entries of each tuple, some rows invalid, over three
+    full tiles and a ragged one: bitwise with dyadic dw."""
+    dev = needs_card()
+    g, h, l, b = 5, 16, 16, 3 * 32 + 7
+    rng = np.random.default_rng(distinct)
+    entries = np.stack([rng.choice(h * l, distinct, replace=False)
+                        for _ in range(g)])  # (g, distinct)
+    # 7 is prime to 32: 32 consecutive rows take every residue
+    pick = (7 * np.arange(b)[:, None] + np.arange(g)) % distinct
+    flat = entries[np.arange(g), pick]
+    hi = torch.from_numpy((flat // l).astype(np.int32)).to(dev)
+    lo = torch.from_numpy((flat % l).astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random(b) < 0.7).to(dev)
+    dw = _dyadic_dw(b, distinct, dev)
+    got = kernels.grad_class(hi, lo, dw, valid, h, l)
+    want = kernels.grad_class_reference(hi, lo, dw, valid, h, l)
+    assert torch.equal(got, want)
+    assert int((want[1] > 0).sum(dim=(1, 2)).max()) <= distinct
+
+
+@pytest.mark.parametrize("b", [1, 33, 1001])
+def test_grad_class_kernel_any_batch(b):
+    """One row, one past a 32-row tile, and a ragged last tile; and
+    the same rows from a misaligned index view."""
+    dev = needs_card()
+    g, h, l = SHAPES[0]
+    hi, lo, _dw, valid = _grad_inputs(g, h, l, b, b, dev)
+    valid[0] = True
+    dw = _dyadic_dw(b, b, dev)
+    want = kernels.grad_class_reference(hi, lo, dw, valid, h, l)
+    assert torch.equal(kernels.grad_class(hi, lo, dw, valid, h, l), want)
+    shift = [torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(t.shape)
+             for t in (hi, lo)]
+    assert shift[0].data_ptr() % 16
+    assert torch.equal(kernels.grad_class(*shift, dw, valid, h, l), want)
 
 
 @pytest.mark.parametrize("n", [2, 3, 4, 5])

@@ -225,11 +225,16 @@ def _grad_port(hi, lo, dw, valid, h, l):
 
 def test_grad_class_reference_matches_pallas_interpret():
     """The shapes of ``tests/test_ops.py::test_pallas_grad_class_interpret``:
-    hits bitwise, dsum within the Pallas kernel's bf16x2 split."""
+    one contiguous (2, G, H, L) pair, its hits row bitwise JAX's hits,
+    its dsum row within the Pallas kernel's bf16x2 split."""
     g, h, l = 4, 64, 64
     hi, lo, dw, valid = _grad_inputs(g, h, l, 128, seed=1)
     want = pk.grad_for(h, l)(*map(jnp.asarray, (hi, lo, dw, valid)), 64, True)
-    dsum, hits = _grad_port(hi, lo, dw, valid, h, l)
+    pair = kernels.grad_class(*map(torch.from_numpy, (hi, lo, dw, valid)),
+                              h, l)
+    assert pair.shape == (2, g, h, l) and pair.dtype == torch.float32
+    assert pair.is_contiguous()
+    dsum, hits = pair.numpy()
     np.testing.assert_array_equal(hits, np.asarray(want[1]))
     wd = np.asarray(want[0])
     ref_d, _ = _grad_loop(hi, lo, dw, valid, h, l)
@@ -249,6 +254,27 @@ def test_grad_class_reference_any_batch(b):
     np.testing.assert_array_equal(hits, ref_h)
     mass = _grad_loop(hi, lo, np.abs(dw), valid, h, l)[0]
     np.testing.assert_array_less(np.abs(dsum - ref_d), 2.0**-20 * mass + 1e-30)
+
+
+@pytest.mark.parametrize("distinct", [1, 2, 5, 32])
+def test_grad_class_reference_colliding_rows_bitwise(distinct):
+    """Every 32 consecutive rows hit exactly ``distinct`` entries of
+    each tuple (the card's test of its warp groups, on the plain
+    version): with dyadic dw every sum is exact, so the pair equals
+    the float64 loop bit for bit."""
+    g, h, l, b = 5, 16, 16, 3 * 32 + 7
+    rng = np.random.default_rng(distinct)
+    entries = np.stack([rng.choice(h * l, distinct, replace=False)
+                        for _ in range(g)])
+    flat = entries[np.arange(g), (7 * np.arange(b)[:, None]
+                                  + np.arange(g)) % distinct]
+    hi, lo = (flat // l).astype(np.int32), (flat % l).astype(np.int32)
+    dw = (rng.integers(-40, 41, b) * 2.0**-12).astype(np.float32)
+    valid = rng.random(b) < 0.7
+    dsum, hits = _grad_port(hi, lo, dw, valid, h, l)
+    ref_d, ref_h = _grad_loop(hi, lo, dw, valid, h, l)
+    np.testing.assert_array_equal(dsum, ref_d)
+    np.testing.assert_array_equal(hits, ref_h)
 
 
 def test_grad_class_bad_index_and_invalid_rows():
@@ -300,9 +326,11 @@ def test_make_class_grads_matches_jax_bitwise(n):
         classes, fn = tdisp.make_class_grads(tnt.get_tuple_set(n), mode)
         got = fn(*map(torch.from_numpy, (idx, dw, valid)))
         assert len(got) == len(want) == len(classes.matmul)
-        for (gd, gh), (wd, wh) in zip(got, want):
-            np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
-            np.testing.assert_array_equal(gh.numpy(), np.asarray(wh))
+        for c, pair, (wd, wh) in zip(classes.matmul, got, want):
+            # one contiguous [dsum; hits] pair per class
+            assert pair.shape == (2, c.g, c.h, c.l) and pair.is_contiguous()
+            np.testing.assert_array_equal(pair[0].numpy(), np.asarray(wd))
+            np.testing.assert_array_equal(pair[1].numpy(), np.asarray(wh))
 
 
 @pytest.mark.parametrize("canonical", [True, False])

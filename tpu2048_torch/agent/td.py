@@ -246,15 +246,14 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
         return symmetrize_class_sum(ts, c.feat0, c.g, pair)
 
     def class_block_update(state: TDState, delta: torch.Tensor) -> None:
-        """16^2..16^4 classes: (dsum, hits) blocks, their D4 fold, and
+        """16^2..16^4 classes: [dsum; hits] pairs, their D4 fold, and
         the TC rule on each class block, in place."""
-        blocks = class_grads(state.prev_idx.reshape(-1, num_feat), delta,
-                             state.prev_valid)
-        for c, (dsum_b, hits_b) in zip(classes_c.matmul, blocks):
-            size1 = c.h * c.l
-            nsz = c.g * size1
-            pair = fold(c, torch.stack([dsum_b.reshape(c.g, size1),
-                                        hits_b.reshape(c.g, size1)]))
+        pairs = class_grads(state.prev_idx.reshape(-1, num_feat), delta,
+                            state.prev_valid)
+        for c, pair in zip(classes_c.matmul, pairs):
+            nsz = c.g * c.h * c.l
+            # the gradient pair is the fold's input as it stands
+            pair = fold(c, pair.view(2, c.g, c.h * c.l))
             dbar = pair[0].reshape(nsz) / pair[1].reshape(nsz).clamp(min=1.0)
             blk = slice(c.start, c.start + nsz)
             w_blk = state.weights[blk]

@@ -34,8 +34,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
     # tables, round_bf16, hi, lo, out, B, G, H, L, stream
     "eval_class_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    # hi, lo, dw, valid, dsum, hits, B, G, H, L, stream
-    "grad_class_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # hi, lo, dw, valid, pair, B, G, H, L, stream
+    "grad_class_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, out, orbits, reps, n_orbits, R, G, k, stream
     "fold_class_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

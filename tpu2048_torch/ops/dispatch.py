@@ -194,21 +194,22 @@ def make_mxu_eval_idx(ts: TupleSet, mode: str) -> Callable:
 
 def make_class_grads(ts: TupleSet, mode: str
                      ) -> Tuple[oh.TableClasses, Callable]:
-    """Per-class (dsum, hits) gradient blocks of the 16^2..16^4
-    classes only, in standard digit order.
+    """Per-class gradient pairs of the 16^2..16^4 classes only, in
+    standard digit order.
 
     Returns ``(classes, fn)`` with ``fn(idx (B, F), dw (B,), valid
-    (B,)) -> [(dsum (g, h, l), hits (g, h, l)), ...]`` aligned with
-    ``classes.matmul``: the ``grad_class`` kernel on "pallas" (its
-    plain version on CPU tensors), the plain ``index_add_`` on
-    "gather".  hits are exact; dsum differs between the two only in
-    f32 summation order.
+    (B,)) -> [pair (2, g, h, l), ...]`` aligned with
+    ``classes.matmul``, each pair [dsum; hits] in one contiguous tensor
+    (``dsum, hits = pair`` unpacks it): the ``grad_class`` kernel on
+    "pallas" (its plain version on CPU tensors), the plain
+    ``index_add_`` on "gather".  hits are exact; dsum differs between
+    the two only in f32 summation order.
     """
     resolve_mode(mode, torch.device("cpu"))
     classes = oh.build_table_classes(ts)
 
     def fn(idx: torch.Tensor, dw: torch.Tensor, valid: torch.Tensor
-           ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+           ) -> List[torch.Tensor]:
         grads = (kernels.grad_class if uses_kernels(mode, idx.device)
                  else kernels.grad_class_reference)
         out = []

@@ -136,10 +136,11 @@ eval_class.launches = 0
 
 def grad_class_reference(hi: torch.Tensor, lo: torch.Tensor,
                          dw: torch.Tensor, valid: torch.Tensor, h: int,
-                         l: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                         l: int) -> torch.Tensor:
     """Plain version of ``grad_class``: ``index_add_`` of the valid
-    rows' dw (and of their count) into zeroed (G, H, L) blocks.  An
-    out-of-range index of a valid row makes ``dsum[g, 0, 0]`` NaN."""
+    rows' dw (and of their count) into the two rows of a zeroed (2, G,
+    H, L) pair.  An out-of-range index of a valid row makes ``dsum[g,
+    0, 0]`` NaN."""
     b, g = hi.shape
     ok = (hi >= 0) & (hi < h) & (lo >= 0) & (lo < l)
     take = valid[:, None] & ok
@@ -147,27 +148,28 @@ def grad_class_reference(hi: torch.Tensor, lo: torch.Tensor,
     flat = ((gi * h + hi.clamp(0, h - 1)) * l + lo.clamp(0, l - 1))
     flat = flat.reshape(-1).long()
     zero = torch.zeros((), dtype=torch.float32, device=hi.device)
-    dsum = torch.zeros(g * h * l, dtype=torch.float32, device=hi.device)
-    hits = torch.zeros_like(dsum)
-    dsum.index_add_(0, flat, torch.where(take, dw[:, None], zero).reshape(-1))
-    hits.index_add_(0, flat, take.to(torch.float32).reshape(-1))
-    dsum, hits = dsum.view(g, h, l), hits.view(g, h, l)
+    pair = torch.zeros((2, g, h, l), dtype=torch.float32, device=hi.device)
+    dsum, hits = pair
+    dsum.view(-1).index_add_(
+        0, flat, torch.where(take, dw[:, None], zero).reshape(-1))
+    hits.view(-1).index_add_(0, flat, take.to(torch.float32).reshape(-1))
     bad = (valid[:, None] & ~ok).any(dim=0)
     dsum[:, 0, 0] = torch.where(bad, float("nan"), dsum[:, 0, 0])
-    return dsum, hits
+    return pair
 
 
 def grad_class(hi: torch.Tensor, lo: torch.Tensor, dw: torch.Tensor,
-               valid: torch.Tensor, h: int, l: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dsum, hits), each (G, H, L) f32: ``dsum[g, hi, lo]`` sums dw
-    over the valid rows hitting that entry, ``hits`` counts them.
+               valid: torch.Tensor, h: int, l: int) -> torch.Tensor:
+    """The gradient pair, one contiguous (2, G, H, L) f32 tensor: row 0
+    is dsum, where ``dsum[g, hi, lo]`` sums dw over the valid rows
+    hitting that entry, row 1 is hits, their count (``dsum, hits =
+    grad_class(...)`` unpacks it into two views).  The pair is
+    ``fold_class``'s input as it stands, viewed as (2, G, H * L).
 
     ``hi`` and ``lo`` (B, G) int32, ``dw`` (B,) f32, ``valid`` (B,)
     bool, any B.  hits are exact; dsum is an f32 sum whose order the
-    card's atomics change from run to run.  Invalid rows are never
-    read; a valid row's out-of-range index makes ``dsum[g, 0, 0]``
-    NaN.
+    card's atomics change from run to run.  Invalid rows take no part;
+    a valid row's out-of-range index makes ``dsum[g, 0, 0]`` NaN.
     """
     _check_index_pair("grad_class", hi, lo)
     b, g = hi.shape
@@ -181,13 +183,13 @@ def grad_class(hi: torch.Tensor, lo: torch.Tensor, dw: torch.Tensor,
         raise ValueError(f"grad_class: bad block shape H={h}, L={l}")
     if _check_device("grad_class", hi, lo, dw, valid) == "cpu":
         return grad_class_reference(hi, lo, dw, valid, h, l)
-    dsum = torch.zeros((g, h, l), dtype=torch.float32, device=hi.device)
-    hits = torch.zeros_like(dsum)
+    # the launch zeroes the pair itself (one fill, 16-byte stores,
+    # overlapped with the scatter's start)
+    pair = torch.empty((2, g, h, l), dtype=torch.float32, device=hi.device)
     _launch("grad_class", hi.device, hi.data_ptr(), lo.data_ptr(),
-            dw.data_ptr(), valid.data_ptr(), dsum.data_ptr(),
-            hits.data_ptr(), b, g, h, l)
+            dw.data_ptr(), valid.data_ptr(), pair.data_ptr(), b, g, h, l)
     grad_class.launches += 1
-    return dsum, hits
+    return pair
 
 
 grad_class.launches = 0
