@@ -46,9 +46,10 @@ Phases, one line of output each (the kernel phases one per check):
      library call computes a D4 orbit sum);
   7. train_step: one n=5 train step of 8192 envs through the kernels
      on the card and through their plain versions on the CPU, from one
-     state with dyadic weights and the same numpy draws: every integer
-     of the state and the staged recorder rows bitwise, the weights and
-     TC sums within 2^-17 of the table's largest entry;
+     state (two warm steps on the card) with dyadic weights and the
+     same numpy draws: every integer of the state and the staged
+     recorder rows bitwise, the weights and TC sums within 2^-17 of the
+     table's largest entry;
   8. train: ``Trainer.run`` at the shipped defaults (n=5, 8192 envs,
      K=64) for 12 segments: every step launched each kernel, the
      weights are finite, episodes completed, the saved best game
@@ -70,12 +71,29 @@ Phases, one line of output each (the kernel phases one per check):
      in the order kernel, gather, gather, kernel; the kernel's
      launches on this path (its first run), the compaction-tier
      histogram, tree chunks per step, ms per move of all four runs,
-     and the best game's replay.
+     and the best game's replay;
+ 10. train_variant_check: the learner settings off the defaults
+     (``VARIANTS``: sgd with "fold", TC with "index" (``grad_class`` at
+     8 x 8192 rows), sgd "index" "sum" (the updater), canonical sgd,
+     canonical TC "sum", the "bf16x2" actor, the cells engine, and one
+     K=2 "periodic" segment from a fresh state), each checked as in
+     phase 7 at n=5 and 8192 envs, with the kernels each launched,
+     except that each table entry may also differ by its f32
+     summation-order bound (``_order_slack``); then ``grad_class``
+     checked and timed as in phase 5 on the "index" step's 65,536 rows;
+ 11. train_variant: ``Trainer.run`` of the reference's own rule
+     (``optimizer="sgd", alpha=0.25, sym_impl="index"``) at n=5, 8192
+     envs, K=64 for 6 segments: ``eval_class`` twice a step,
+     ``grad_class`` once, ``fold_class`` never; the weights finite,
+     the best game replays; the checkpoint resumes on the card (its
+     generator's stream continued) and on the CPU (a fresh stream,
+     logged); env-steps/s and the first and last ma-100.
 
-Then a JSON line of the kernels of the three paths (name, route,
-source, the TPU kernel it replaces, its launches in the serve, train
-and search runs, its largest error against the plain version, its,
-the plain version's and the library call's time in ms, and its bound:
+Then a JSON line of the kernels of the four paths (name, route,
+source, the TPU kernel it replaces, its launches in the serve, train,
+search and train_variant runs, its largest error against the plain
+version, its, the plain version's and the library call's time in ms,
+and its bound:
 the bytes it must move, each input read once and each output written
 once, over 3.35 TB/s; every timed shape under ``instances``), and last
 ``{"ok": true, "device": {...}}``.
@@ -99,6 +117,21 @@ SERVE_GAMES = 8192
 SERVE_B = 4 * SERVE_GAMES
 TRAIN_B = 8192  # envs of the shipped TrainConfig
 TRAIN_SEGMENTS = 12
+VARIANT_SEGMENTS = 6
+# the learner settings off the defaults (phase 10), at n=5 through
+# table_ops="pallas"; "sum" at a small alpha, where 8192 envs' summed
+# updates stay small
+VARIANTS = {
+    "sgd_fold": dict(optimizer="sgd", alpha=0.25, sym_impl="fold"),
+    "tc_index": dict(sym_impl="index"),
+    "sgd_index_sum": dict(optimizer="sgd", alpha=2.0**-10, sym_impl="index",
+                          update_mode="sum"),
+    "sgd_canonical": dict(optimizer="sgd", alpha=0.25),
+    "tc_canonical_sum": dict(alpha=2.0**-4, update_mode="sum"),
+    "bf16x2_actor": dict(actor_precision="bf16x2"),
+    "cells": dict(engine_mode="cells"),
+    "tc_periodic_segment": dict(sym_mode="periodic"),
+}
 RAGGED_B = 1001
 SEARCH_GAMES = 256
 SEARCH_B = 2_000_000  # leaf rows of one chunk of the search tree
@@ -459,7 +492,9 @@ def _train_rows(n: int, state=None) -> tuple:
     b = hi.shape[0]
     dw = torch.from_numpy(np.random.default_rng(b).standard_normal(b)
                           .astype(np.float32)).to(hi.device)
-    return hi, lo, dw, state.prev_valid.clone(), c.h, c.l
+    # one row per image: 8 of each env under sym_impl="index"
+    valid = state.prev_valid[:, None].expand(-1, state.prev_idx.shape[1])
+    return hi, lo, dw, valid.reshape(-1).clone(), c.h, c.l
 
 
 def _grad_time(case: str, args: list, h: int, l: int) -> dict:
@@ -618,48 +653,214 @@ def _to(x, dev):
     return type(x)(*(_to(v, dev) for v in x))
 
 
-def phase_train_step() -> None:
-    from tpu2048_torch.agent import td
-    from tpu2048_torch.config import AgentConfig, TrainConfig
-    from tpu2048_torch.draws import NumpyDraws
-    from tpu2048_torch.features.ntuple import get_tuple_set
+def _order_slack(acfg, ts, before, after) -> torch.Tensor:
+    """Per table entry, the f32 summation-order bound of one step's
+    update: the card's atomics and the CPU add an entry's terms in
+    other orders, and phase 5's bound for a gradient sum, hits * 2^-23
+    * (sum of |dw| at the entry), carried through the learner's rule.
+    ``before`` is the CPU state the step started from, ``after`` the
+    CPU state it left (its TD errors are read back from the two).
 
-    acfg = AgentConfig(table_ops="pallas")  # kernels on the card, plain on CPU
-    tcfg = TrainConfig(num_envs=TRAIN_B)
-    ts = get_tuple_set(acfg.n)
-    t0 = time.perf_counter()
-    st = td.init_td_state(ts, acfg, tcfg, NumpyDraws(0, "cpu"), "cpu")
-    warm = td.make_train_step(ts, acfg, tcfg, NumpyDraws(1, "cpu"))
-    st, _ = warm(warm(st)[0])  # two steps: valid rows and TC sums
-    st = st._replace(weights=torch.from_numpy(_dyadic(ts.total, 2)))
-    card, rec_card = td.make_train_step(ts, acfg, tcfg, NumpyDraws(3, "cuda"))(
-        _to(st, "cuda"))
-    torch.cuda.synchronize()
-    plain, rec_plain = td.make_train_step(ts, acfg, tcfg,
-                                          NumpyDraws(3, "cpu"))(st)
-    same = [torch.equal(a.cpu(), b) for a, b in zip(rec_card, rec_plain)]
-    same += [torch.equal(a.cpu(), b) for a, b in zip(card.env, plain.env)]
-    same += [torch.equal(getattr(card, f).cpu(), getattr(plain, f))
-             for f in ("prev_idx", "prev_cidx", "prev_cmult", "prev_valid",
-                       "prev_value", "top_tile", "alpha")]
-    same += [torch.equal(a.cpu()[:-1] if a.dim() else a.cpu(),
-                         b[:-1] if b.dim() else b)  # ring trash slot aside
-             for a, b in zip(card.metrics, plain.metrics)]
-    if not all(same):
-        raise AssertionError("train step: the card's integer state differs "
-                             "from the plain CPU step")
+    Where the rule divides each sum by its hits (TC, and "mean"), the
+    bound is 2^-23 * sum |dw|; where it adds the sum as it is (sgd
+    "sum", and the canonical crosses under "sum"), hits times that.
+    The D4 fold of "fold" and of the canonical class blocks folds the
+    bound with the sums."""
+    from tpu2048_torch.features.canonical import is_canonical
+    from tpu2048_torch.features.symmetry import symmetrize_sum
+    from tpu2048_torch.ops import onehot as oh
+
+    done = ~after.prev_valid
+    reward = (after.env.score - before.env.score).to(torch.float32)
+    td = torch.where(done, -before.prev_value,
+                     reward + after.prev_value - before.prev_value)
+    # |dw| of each env; TC moves w by alpha * rate * dbar, rate <= 1
+    alpha = float(before.alpha)
+    scale = alpha if acfg.optimizer == "sgd" else max(alpha, 1.0)
+    dw = torch.where(before.prev_valid, td.abs(), 0.0) * (scale / ts.num_feat)
+
+    def mass_hits(idx, per):
+        """[sum of per; count] of the valid envs' rows at ``idx``."""
+        flat = idx.reshape(idx.shape[0], -1)
+        per = per.expand(flat.shape) if per.dim() == 2 else \
+            per[:, None].expand(flat.shape)
+        keep = before.prev_valid[:, None].expand(flat.shape)
+        pair = torch.zeros((2, ts.total), dtype=torch.float32)
+        pair[0].index_add_(0, flat[keep].long(), per[keep])
+        pair[1].index_add_(0, flat[keep].long(), torch.ones_like(per[keep]))
+        return pair
+
+    sgd_sum = acfg.optimizer == "sgd" and acfg.update_mode == "sum"
+    pair = mass_hits(before.prev_idx, dw)
+    if is_canonical(acfg):
+        end = max(c.start + c.g * c.h * c.l
+                  for c in oh.build_table_classes(ts).matmul)
+        pair[:, end:] = 0.0  # the gather classes learn at their crosses
+        pair = symmetrize_sum(ts, pair)
+        slack = pair[0] * (pair[1] if sgd_sum else 1.0)
+        if before.prev_cidx.shape[1]:
+            per = dw[:, None].expand(before.prev_cidx.shape)
+            if acfg.update_mode == "sum":
+                per = per * before.prev_cmult.to(torch.float32)
+            cross = mass_hits(before.prev_cidx, per)
+            undivided = acfg.update_mode == "sum"
+            slack[end:] = (cross[0] * (cross[1] if undivided else 1.0))[end:]
+    else:
+        if acfg.sym_mode == "scatter" and acfg.sym_impl == "fold":
+            pair = symmetrize_sum(ts, pair)
+        slack = pair[0] * (pair[1] if sgd_sum else 1.0)
+    return 2.0**-23 * slack
+
+
+def _hold_states(card, plain, what: str, slack=0.0) -> dict:
+    """The card's train state against the CPU's: every integer bitwise
+    (the rings' trash slot and the logs' spill column aside: they take
+    the writes of lanes that do not record, in no set order), each
+    table within 2^-17 of its largest entry plus ``slack`` (per entry,
+    see ``_order_slack``).  Returns the tables' largest errors and
+    their largest share of the bound."""
+    def cut(x, f):
+        x = x.cpu()
+        if f in ("score_ring", "tile_ring"):
+            return x[:-1]
+        return x[..., :-1] if f in ("moves", "spawns") else x
+
+    same = {f"env.{f}": torch.equal(a.cpu(), b)
+            for f, a, b in zip(card.env._fields, card.env, plain.env)}
+    same.update({f: torch.equal(getattr(card, f).cpu(), getattr(plain, f))
+                 for f in ("prev_idx", "prev_cidx", "prev_cmult", "prev_valid",
+                           "prev_value", "top_tile", "alpha", "next_decay")})
+    for group in ("metrics", "recorder"):
+        a, b = getattr(card, group), getattr(plain, group)
+        same.update({f"{group}.{f}": torch.equal(cut(x, f), cut(y, f))
+                     for f, x, y in zip(a._fields, a, b)})
+    differ = [f for f, ok in same.items() if not ok]
+    if differ:
+        raise AssertionError(f"{what}: the card's integer state differs from "
+                             f"the plain CPU's in {differ}")
     errs = {}
     for f in ("weights", "opt_e", "opt_a"):
         a, b = getattr(card, f).cpu(), getattr(plain, f)
-        tol = 2.0**-17 * float(b.abs().max())
-        errs[f] = float((a - b).abs().max())
-        if not errs[f] <= tol:
-            raise AssertionError(f"train step: {f} differs by {errs[f]} > "
-                                 f"{tol}")
+        if not b.numel():  # the sgd rule keeps no TC sums
+            continue
+        err = (a - b).abs()
+        bound = 2.0**-17 * float(b.abs().max()) + slack
+        errs[f] = float(err.max())
+        share = float((err / bound).max())
+        errs[f + "_share_of_bound"] = share
+        if not share <= 1.0:
+            raise AssertionError(f"{what}: {f} differs by {errs[f]}, "
+                                 f"{share:.3g} of its bound")
+    return errs
+
+
+def _launch_counts() -> dict:
+    from tpu2048_torch.ops import kernels
+
+    return {k.__name__: k.launches for k in (
+        kernels.eval_class, kernels.grad_class, kernels.fold_class)}
+
+
+def _card_step_against_cpu(acfg, tcfg, segment: bool = False) -> tuple:
+    """One train step (or one segment) of ``acfg`` through the kernels on
+    the card and through their plain versions on the CPU, from one
+    state with dyadic weights and the same numpy draws: after two warm
+    steps on the card, or for a segment from a fresh state, whose first
+    step updates nothing, so that every value the actor reads is exact
+    in f32 on both sides; the staged recorder rows bitwise.  Returns
+    (the card's state, the CPU's, the summation-order bound of each
+    table entry (``_order_slack``), the card's launches per kernel)."""
+    from tpu2048_torch.agent import td
+    from tpu2048_torch.draws import NumpyDraws
+    from tpu2048_torch.features.ntuple import get_tuple_set
+    from tpu2048_torch.features.symmetry import symmetrize_table
+
+    ts = get_tuple_set(acfg.n)
+    st = td.init_td_state(ts, acfg, tcfg, NumpyDraws(0, "cuda"), "cuda")
+    if not segment:
+        warm = td.make_train_step(ts, acfg, tcfg, NumpyDraws(1, "cuda"))
+        st, _ = warm(warm(st)[0])  # two steps: valid rows and TC sums
+    st = _to(st, "cpu")._replace(weights=torch.from_numpy(_dyadic(ts.total,
+                                                                   2)))
+    make = td.make_train_segment if segment else td.make_train_step
+    before = _launch_counts()
+    card = make(ts, acfg, tcfg, NumpyDraws(3, "cuda"))(_to(st, "cuda"))
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in _launch_counts().items()}
+    if segment:
+        # the segment's first step (which updates nothing) alone, for
+        # the rows its second step learns from
+        first, _ = td.make_train_step(ts, acfg, tcfg, NumpyDraws(3, "cpu"))(
+            _to(st, "cpu"))
+        plain = make(ts, acfg, tcfg, NumpyDraws(3, "cpu"))(st)
+        slack = _order_slack(acfg, ts, first, plain)
+        if acfg.sym_mode == "periodic":
+            slack = symmetrize_table(ts, slack)
+    else:
+        (card, rec_card) = card
+        plain, rec_plain = make(ts, acfg, tcfg, NumpyDraws(3, "cpu"))(
+            _to(st, "cpu"))
+        if not all(torch.equal(a.cpu(), b)
+                   for a, b in zip(rec_card, rec_plain)):
+            raise AssertionError(f"{acfg}: the staged recorder rows differ")
+        slack = _order_slack(acfg, ts, st, plain)
+    return card, plain, slack, launches
+
+
+def phase_train_step() -> None:
+    from tpu2048_torch.config import AgentConfig, TrainConfig
+
+    acfg = AgentConfig(table_ops="pallas")  # kernels on the card, plain on CPU
+    tcfg = TrainConfig(num_envs=TRAIN_B)
+    t0 = time.perf_counter()
+    card, plain, _, _ = _card_step_against_cpu(acfg, tcfg)
+    errs = _hold_states(card, plain, "train step")
     _line("train_step_check", n=acfg.n, envs=TRAIN_B, integers="bitwise",
           max_abs_err=errs, tolerance="2^-17 * max|table|",
           episodes_done=int(card.metrics.episodes),
           seconds=time.perf_counter() - t0)
+
+
+def phase_train_variants(kstat: dict) -> None:
+    """Phase 10: the learner settings off the defaults, each one step
+    (one K=2 segment for "periodic") on the card against the CPU; then
+    phase 5's check and times of ``grad_class`` on the 8 x 8192 rows of
+    the "index" learner's step, its row added to ``kstat``."""
+    import dataclasses
+
+    from tpu2048_torch.config import AgentConfig, TrainConfig
+
+    tcfg = TrainConfig(num_envs=TRAIN_B)
+    for name, kw in VARIANTS.items():
+        acfg = AgentConfig(table_ops="pallas", **kw)
+        segment = acfg.sym_mode == "periodic"
+        t0 = time.perf_counter()
+        card, plain, slack, launches = _card_step_against_cpu(
+            acfg, dataclasses.replace(tcfg, steps_per_call=2) if segment
+            else tcfg, segment)
+        errs = _hold_states(card, plain, f"train variant {name}", slack)
+        steps = 2 if segment else 1
+        bootstrap = (acfg.actor_precision == "bf16"
+                     and acfg.engine_mode == "codes")
+        want = {"eval_class": steps * (1 + bootstrap), "grad_class": steps,
+                "fold_class": steps * (acfg.sym_impl == "canonical"
+                                       and acfg.sym_mode == "scatter")}
+        if launches != want:
+            raise AssertionError(f"{name}: the card launched {launches}, "
+                                 f"expected {want}")
+        _line("train_variant_check", variant=name, config=kw, n=acfg.n,
+              envs=TRAIN_B, steps=steps, integers="bitwise",
+              max_abs_err=errs, tolerance="2^-17 * max|table| + the entry's "
+              "summation-order bound",
+              launches=launches, alpha_after=float(card.alpha),
+              seconds=time.perf_counter() - t0)
+        if name == "tc_index":
+            *args, h, l = _train_rows(acfg.n, card)
+            e, r = _grad_check(*args, h, l, "n=5 index learner's rows")
+            kstat["max_abs_err"] = max(kstat["max_abs_err"], e)
+            _line("grad_class_check", case="train_index", max_abs_err=e,
+                  max_err_over_bound=r, hits="bitwise", dyadic_dw="bitwise")
+            kstat["instances"].append(_grad_time("train_index", args, h, l))
 
 
 class _StopAfter:
@@ -675,13 +876,11 @@ class _StopAfter:
 
 def phase_train(name: str) -> tuple:
     from tpu2048_torch.config import AgentConfig, TrainConfig
-    from tpu2048_torch.engine.core import np_move
     from tpu2048_torch.features.ntuple import get_tuple_set
     from tpu2048_torch.obs.logging import Logger
     from tpu2048_torch.ops import kernels
     from tpu2048_torch.store.artifacts import LocalStore
-    from tpu2048_torch.store.checkpoint import (load_agent, load_agent_dense,
-                                                load_game)
+    from tpu2048_torch.store.checkpoint import load_agent, load_agent_dense
     from tpu2048_torch.train.loop import Trainer
     from tpu2048_torch.train.trial import trial
 
@@ -710,20 +909,7 @@ def phase_train(name: str) -> tuple:
             raise AssertionError("non-finite weights after training")
         if out["episodes"] <= 0:
             raise AssertionError("no episode completed")
-        rec = load_game(store, f"best_of_{name}")
-        board, score = rec["starting_position"].copy(), 0
-        for t in range(rec["odometer"]):
-            board, delta, changed = np_move(board, int(rec["moves"][t]))
-            if not changed:
-                raise AssertionError(f"best game: illegal move at {t}")
-            val, i, j = rec["tiles"][t]
-            board[i, j] = val
-            score += delta
-        if (score != rec["score"]
-                or not (board == rec["final_board"]).all()
-                or score != out["top_score"]):
-            raise AssertionError("the saved best game does not replay to "
-                                 "the run's best score")
+        _replays(store, name, out["top_score"])
         acfg2, w_np, meta = load_agent(store, name)
         if (acfg2 != acfg or w_np.shape != st.weights.shape
                 or "opt_e" not in meta["extras"]):
@@ -746,6 +932,100 @@ def phase_train(name: str) -> tuple:
           launches=launches, trial_avg_score=float(games.scores.mean()),
           timer=timer.report().splitlines())
     return launches, st
+
+
+def _replays(store, name: str, top_score: int) -> None:
+    """The saved best game replays to the run's best score."""
+    from tpu2048_torch.engine.core import np_move
+    from tpu2048_torch.store.checkpoint import load_game
+
+    rec = load_game(store, f"best_of_{name}")
+    board, score = rec["starting_position"].copy(), 0
+    for t in range(rec["odometer"]):
+        board, delta, changed = np_move(board, int(rec["moves"][t]))
+        if not changed:
+            raise AssertionError(f"{name} best game: illegal move at {t}")
+        val, i, j = rec["tiles"][t]
+        board[i, j] = val
+        score += delta
+    if (score != rec["score"] or not (board == rec["final_board"]).all()
+            or score != top_score):
+        raise AssertionError(f"{name}: the saved best game does not replay "
+                             "to the run's best score")
+
+
+def phase_train_variant(name: str) -> dict:
+    """Phase 11: ``Trainer.run`` of the reference's own rule (sgd, alpha
+    0.25, explicit 8-image indices) at n=5, 8192 envs, K=64, for
+    VARIANT_SEGMENTS segments, then its checkpoint resumed on the card
+    (the generator's stream continued) and on the CPU (a fresh stream,
+    logged).  Returns the kernels' launches of the run."""
+    from tpu2048_torch.config import AgentConfig, TrainConfig
+    from tpu2048_torch.obs.logging import Logger
+    from tpu2048_torch.ops import kernels
+    from tpu2048_torch.store.artifacts import LocalStore, MemoryStore
+    from tpu2048_torch.train.loop import Trainer
+
+    acfg = AgentConfig(optimizer="sgd", alpha=0.25, sym_impl="index")
+    tcfg = TrainConfig(num_envs=TRAIN_B, steps_per_call=64,
+                       episodes=10**9, checkpoint_every=10**9)
+    with tempfile.TemporaryDirectory() as root:
+        store = LocalStore(root)
+        tr = Trainer(name, acfg, tcfg, store=store,
+                     logger=Logger(console=False), device="cuda")
+        for k in (kernels.eval_class, kernels.grad_class, kernels.fold_class):
+            k.launches = 0
+        out = tr.run(job=_StopAfter(VARIANT_SEGMENTS))
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        steps = VARIANT_SEGMENTS * tcfg.steps_per_call
+        want = {"eval_class": 2 * steps, "grad_class": steps, "fold_class": 0}
+        if launches != want:
+            raise AssertionError(f"sgd/index run launched {launches}, "
+                                 f"expected {want}")
+        st = tr.state
+        if not bool(torch.isfinite(st.weights).all()):
+            raise AssertionError("sgd/index: non-finite weights")
+        if out["episodes"] <= 0:
+            raise AssertionError("sgd/index: no episode completed")
+        _replays(store, name, out["top_score"])
+        resumed = {}
+        for dev in ("cuda", "cpu"):
+            log = Logger(store=MemoryStore(), console=False)
+            again = Trainer(name, acfg, tcfg, store=store, logger=log,
+                            resume=True, device=dev)
+            if not (torch.equal(again.state.weights.cpu(), st.weights.cpu())
+                    and torch.equal(again.state.alpha.cpu(), st.alpha.cpu())
+                    and int(again.state.metrics.episodes) == out["episodes"]):
+                raise AssertionError(f"sgd/index: the resume on {dev} lost "
+                                     "the agent")
+            fresh = "a fresh stream from seed" in log.tail()
+            continued = dev == "cuda" and torch.equal(
+                again.draws.generator.get_state(),
+                tr.draws.generator.get_state())
+            if (dev == "cuda") != continued or (dev == "cpu") != fresh:
+                raise AssertionError(f"sgd/index: the resume on {dev} did not "
+                                     "take the generator's stream as its type "
+                                     "allows")
+            resumed[dev] = "stream continued" if continued else "fresh stream"
+            del again
+    timer = tr.timer
+    seg_s = (timer.totals["train_segment"] + timer.totals["metrics_read"]
+             ) / VARIANT_SEGMENTS
+    hist = out["train_history"]
+    _line("train_variant", optimizer=acfg.optimizer, alpha0=acfg.alpha,
+          sym_impl=acfg.sym_impl, n=acfg.n, envs=TRAIN_B,
+          steps_per_call=tcfg.steps_per_call, segments=VARIANT_SEGMENTS,
+          episodes=out["episodes"], top_score=out["top_score"],
+          alpha=float(st.alpha), best_game_replays=True,
+          env_steps_per_s=out["env_steps_per_sec"],
+          segment_env_steps_per_s=TRAIN_B * tcfg.steps_per_call / seg_s,
+          wall_per_segment_s=seg_s, ma100_first=hist[0] if hist else None,
+          ma100_last=hist[-1] if hist else None, ma100_points=len(hist),
+          launches=launches,
+          launches_per_step={k: v / steps for k, v in launches.items()},
+          resumed=resumed, timer=timer.report().splitlines())
+    return launches
 
 
 def phase_search() -> tuple:
@@ -853,6 +1133,8 @@ def main() -> int:
     phase_grad_trained(trained, kstats["grad_class"])
     search, search_check = phase_search()
     kstats["eval_class"]["instances"].append(search_check)
+    phase_train_variants(kstats["grad_class"])
+    variant = phase_train_variant("smoke_sgd")
     loaded = sorted(m for m in sys.modules if m == "jax" or m == "tpu2048"
                     or m.startswith(("jax.", "tpu2048.")))
     if loaded:
@@ -867,11 +1149,12 @@ def main() -> int:
         "route": "cuda",
         "source": f"tpu2048_torch/ops/csrc/{k}.cu",
         "replaces": replaces[k],
-        "launches": train[k] + (serve + search if k == "eval_class"
-                                else 0),
+        "launches": train[k] + variant[k] + (serve + search
+                                             if k == "eval_class" else 0),
         "launches_by_path": {"serve": serve if k == "eval_class" else 0,
                              "train": train[k],
-                             "search": search if k == "eval_class" else 0},
+                             "search": search if k == "eval_class" else 0,
+                             "train_variant": variant[k]},
         "bound_by": "bytes",
         # the same two readings under this round's names
         "bound_us": 1e3 * kstats[k]["bound_ms"],

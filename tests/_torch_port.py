@@ -192,3 +192,199 @@ def dyadic_weights(total: int, seed: int = 0) -> np.ndarray:
     in summation order give identical values."""
     rng = np.random.default_rng(seed)
     return (rng.integers(0, 41, total) * 2.0**-12).astype(np.float32)
+
+
+# -- the train state of both packages, compared ------------------------------
+
+TOL = 2.0**-17
+
+
+def np_of(x) -> np.ndarray:
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def assert_close(got, want, name):
+    """Within 2^-17 relative, or 2^-17 of ``want``'s largest entry."""
+    got, want = np_of(got), np_of(want)
+    scale = float(np.abs(want).max()) if want.size else 0.0
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL * scale,
+                               err_msg=name)
+
+
+def assert_eq(got, want, name):
+    np.testing.assert_array_equal(np_of(got), np_of(want), err_msg=name)
+
+
+def assert_train_state(st, js, tcfg, logs=True):
+    """The port's train state against JAX's: every integer bitwise
+    (the engine state, the previous afterstate's indices, the schedule
+    counters, the metrics rings without their trash slot, which every
+    unfinished lane writes in no set order, and the recorder; its logs
+    without the port's spill column, unless ``logs`` is false); alpha
+    bitwise; the bootstrap values and the tables within ``TOL``."""
+    for f in st.env._fields:
+        assert_eq(getattr(st.env, f), getattr(js.env, f), f"env.{f}")
+    for f in ("prev_idx", "prev_valid", "prev_cidx", "prev_cmult",
+              "top_tile", "next_decay", "alpha"):
+        assert_eq(getattr(st, f), getattr(js, f), f)
+    assert_close(st.prev_value, js.prev_value, "prev_value")
+    for f in ("weights", "opt_e", "opt_a"):
+        assert_close(getattr(st, f), getattr(js, f), f)
+    ring = tcfg.ring_size
+    for f in st.metrics._fields:
+        a, b = np_of(getattr(st.metrics, f)), np_of(getattr(js.metrics, f))
+        if a.ndim:
+            a, b = a[:ring], b[:ring]
+        assert_eq(a, b, f"metrics.{f}")
+    s = tcfg.max_record_steps
+    rec, jrec = st.recorder, js.recorder
+    for f in rec._fields:
+        a, b = getattr(rec, f), getattr(jrec, f)
+        if f in ("moves", "spawns"):
+            if not logs:
+                continue
+            a = a[:, :s]
+        assert_eq(a, b, f"recorder.{f}")
+
+
+class JaxTrainFns:
+    """The JAX train step (staged and unstaged) and segment of a port
+    config pair, each jitted once."""
+
+    def __init__(self):
+        self._fns = {}
+
+    def get(self, acfg, tcfg, what):
+        """``what``: "step" (staged), "unstaged" or "segment"."""
+        key = (acfg, tcfg, what)
+        if key not in self._fns:
+            from tpu2048.agent import td as jtd
+            from tpu2048.features import ntuple as jnt
+
+            ts, ja, jt = jnt.get_tuple_set(acfg.n), jax_cfg(acfg), jax_cfg(tcfg)
+            if what == "segment":
+                fn = jtd.make_train_segment(ts, ja, jt)
+            else:
+                fn = jtd.make_train_step(ts, ja, jt, staged=what == "step")
+            self._fns[key] = jax.jit(fn)
+        return self._fns[key]
+
+
+def fresh_state(acfg, tcfg, seed):
+    """A fresh JAX train state of ``acfg`` from ``PRNGKey(seed)``."""
+    from tpu2048.agent import td as jtd
+    from tpu2048.features import ntuple as jnt
+
+    return jtd.init_td_state(jnt.get_tuple_set(acfg.n), jax_cfg(acfg),
+                             jax_cfg(tcfg), jax.random.PRNGKey(seed))
+
+
+def check_segment(jaxfns, acfg, tcfg, js):
+    """One segment of the port and of JAX from the JAX state ``js``,
+    held together (``assert_train_state``).  Returns (the port's state,
+    JAX's state) after it."""
+    from tpu2048_torch.agent import td as ttd
+    from tpu2048_torch.features import ntuple as tnt
+    from tpu2048_torch.store.checkpoint import td_state_from_numpy
+
+    st = td_state_from_numpy(js, "cpu")
+    st = ttd.make_train_segment(tnt.get_tuple_set(acfg.n), acfg, tcfg,
+                                JaxTrainDraws(js.key))(st)
+    js = jaxfns.get(acfg, tcfg, "segment")(js)
+    assert_train_state(st, js, tcfg)
+    return st, js
+
+
+def check_step(jaxfns, acfg, tcfg, js, staged=True):
+    """One step of the port and of JAX from the JAX state ``js``, held
+    together: staged, with its ``RecStep`` rows bitwise and the logs
+    left to the merge; or unstaged, logs and best game included.
+    Returns (the port's state, JAX's state) after it."""
+    from tpu2048_torch.agent import td as ttd
+    from tpu2048_torch.features import ntuple as tnt
+    from tpu2048_torch.store.checkpoint import td_state_from_numpy
+
+    st = td_state_from_numpy(js, "cpu")
+    step = ttd.make_train_step(tnt.get_tuple_set(acfg.n), acfg, tcfg,
+                               JaxTrainDraws(js.key), staged=staged)
+    jstep = jaxfns.get(acfg, tcfg, "step" if staged else "unstaged")
+    if staged:
+        (st, rs), (js, jr) = step(st), jstep(js)
+        for f in rs._fields:
+            assert_eq(getattr(rs, f), getattr(jr, f), f"RecStep.{f}")
+    else:
+        st, js = step(st), jstep(js)
+    assert_train_state(st, js, tcfg, logs=not staged)
+    return st, js
+
+
+class AfterSegment:
+    """Learner settings by name -> JAX's state after one segment from a
+    fresh state of that setting, the segment held against the port's
+    (``check_segment``); computed once each.  Seeds follow the
+    settings' order, from ``seed0``."""
+
+    def __init__(self, variants, tcfg, seed0):
+        self.variants, self.tcfg, self.seed0 = variants, tcfg, seed0
+        self.jaxfns = JaxTrainFns()
+        self._after = {}
+
+    def __call__(self, name):
+        if name not in self._after:
+            acfg = self.variants[name]
+            seed = self.seed0 + list(self.variants).index(name)
+            js = fresh_state(acfg, self.tcfg, seed)
+            self._after[name] = check_segment(self.jaxfns, acfg, self.tcfg,
+                                              js)[1]
+        return self._after[name]
+
+
+def near_terminal_state(acfg, tcfg, seed):
+    """A JAX train state of ``acfg`` whose boards are one or two moves
+    from game over: checkerboards of two tile values with one or two
+    holes.  Half the envs are 10 moves past the record limit, so their
+    logs overflow."""
+    from tpu2048.agent import td as jtd
+    from tpu2048.engine import core as jcore
+    from tpu2048.engine import fast as jfast
+    from tpu2048.features import ntuple as jnt
+
+    js = jtd.init_td_state(jnt.get_tuple_set(acfg.n), jax_cfg(acfg),
+                           jax_cfg(tcfg), jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+    m = tcfg.num_envs
+    a = rng.integers(1, 7, m)[:, None, None]
+    boards = np.where((np.add.outer(np.arange(4), np.arange(4)) % 2) == 0,
+                      a, a + 1).astype(np.int8)
+    for b in boards:
+        b.reshape(16)[rng.choice(16, rng.integers(1, 3), replace=False)] = 0
+    odo = jnp.asarray(np.where(np.arange(m) % 2 == 0, 0,
+                               tcfg.max_record_steps + 10), jnp.int32)
+    score = jnp.zeros(m, jnp.int32)
+    if acfg.engine_mode == "codes":
+        env = jfast.EnvStateC(codes=jfast.codes_from_boards(
+            jnp.asarray(boards)), score=score, odometer=odo)
+    else:
+        env = jcore.EnvState(boards=jnp.asarray(boards), score=score,
+                             odometer=odo)
+    return js._replace(env=env, recorder=js.recorder._replace(
+        starts=jnp.asarray(boards)))
+
+
+def replay(rec) -> int:
+    """The score of a recorder's best game, replayed move by move;
+    every move must change the board and every spawn land on an empty
+    cell."""
+    from tpu2048_torch.engine.core import np_move
+
+    board, score = np_of(rec.best_start).copy(), 0
+    for t in range(int(rec.best_len)):
+        board, delta, changed = np_move(board, int(rec.best_moves[t]))
+        assert changed, f"illegal replay move at step {t}"
+        sp = int(rec.best_spawns[t]) & 0xFF
+        flat = board.reshape(16).copy()  # np_move may return a strided view
+        assert flat[sp & 0xF] == 0
+        flat[sp & 0xF] = (sp >> 4) + 1
+        board = flat.reshape(4, 4)
+        score += delta
+    return score

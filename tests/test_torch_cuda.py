@@ -316,3 +316,76 @@ def test_train_step_card_matches_cpu_plain():
         a, b = getattr(card, name).cpu(), getattr(plain, name)
         tol = 2.0**-17 * float(b.abs().max())
         assert float((a - b).abs().max()) <= tol, name
+
+
+VARIANTS = {
+    "sgd_fold": dict(optimizer="sgd", alpha=0.25, sym_impl="fold"),
+    "tc_index": dict(sym_impl="index"),
+    "sgd_index_sum": dict(optimizer="sgd", alpha=2.0**-10, sym_impl="index",
+                          update_mode="sum"),
+    "sgd_canonical": dict(optimizer="sgd", alpha=0.25),
+    "tc_canonical_sum": dict(alpha=2.0**-4, update_mode="sum"),
+    "bf16x2_actor": dict(actor_precision="bf16x2"),
+    "cells": dict(engine_mode="cells"),
+}
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_variant_train_step_card_matches_cpu_plain(name):
+    """The learner settings off the defaults at n=5, one step each, as
+    ``chip_smoke.py`` phase 10 holds them at 8192 envs: integers
+    bitwise, tables within 2^-17 of the largest entry plus each entry's
+    summation-order bound; ``grad_class`` once, ``fold_class`` on the
+    canonical form only."""
+    needs_card()
+    from chip_smoke import _card_step_against_cpu, _hold_states
+
+    tcfg = TrainConfig(num_envs=1024, ring_size=256, max_record_steps=256)
+    acfg = AgentConfig(table_ops="pallas", **VARIANTS[name])
+    card, plain, slack, launches = _card_step_against_cpu(acfg, tcfg)
+    _hold_states(card, plain, name, slack)
+    bootstrap = acfg.actor_precision == "bf16" and acfg.engine_mode == "codes"
+    assert launches == {"eval_class": 1 + bootstrap, "grad_class": 1,
+                        "fold_class": int(acfg.sym_impl == "canonical")}
+
+
+class _StopAfter:
+    """A job that lets the trainer run ``n`` segments."""
+
+    def __init__(self, n):
+        self.left = n
+
+    def should_stop(self):
+        self.left -= 1
+        return self.left < 0
+
+
+def test_checkpoint_resumes_on_the_other_device_type():
+    """An agent trained on the card resumes on the CPU with a fresh
+    stream (logged), and on the card with its stream continued; the
+    CPU's checkpoint resumes on the card the same way."""
+    dev = needs_card()
+    from tpu2048_torch.obs.logging import Logger
+    from tpu2048_torch.store.artifacts import MemoryStore
+    from tpu2048_torch.train.loop import Trainer
+
+    acfg = AgentConfig(n=4, optimizer="sgd", alpha=0.25, sym_impl="index")
+    tcfg = TrainConfig(num_envs=256, steps_per_call=8)
+    store = MemoryStore()
+    for saved_on, other in ((dev, "cpu"), ("cpu", dev)):
+        tr = Trainer("x", acfg, tcfg, store=store,
+                     logger=Logger(console=False), device=saved_on)
+        tr.run(job=_StopAfter(1))
+        log = Logger(store=MemoryStore(), console=False)
+        again = Trainer("x", acfg, tcfg, store=store, logger=log,
+                        resume=True, device=other)
+        assert torch.equal(again.state.weights.cpu(), tr.state.weights.cpu())
+        assert torch.equal(again.state.alpha.cpu(), tr.state.alpha.cpu())
+        assert "a fresh stream from seed" in log.tail()
+        same = Trainer("x", acfg, tcfg, store=store,
+                       logger=Logger(console=False), resume=True,
+                       device=saved_on)
+        assert torch.equal(same.draws.generator.get_state(),
+                           tr.draws.generator.get_state())
+        again.run(job=_StopAfter(1))  # and saves from the other type
+        assert bool(torch.isfinite(again.state.weights).all())

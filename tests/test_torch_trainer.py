@@ -1,7 +1,8 @@
 """The port's ``Trainer`` on CPU: a short n=4 run, its ma-100 history
 and best game, checkpoints that cross between the two packages in
-both directions, and a resume that changes the table's
-representation."""
+both directions, resumes that change the table's representation
+either way, a resume from a generator of the other device type, and
+the reference's own learning rule (sgd) saved and resumed."""
 
 import dataclasses
 
@@ -18,13 +19,14 @@ from tpu2048.obs.logging import Logger as JaxLogger
 from tpu2048.store import checkpoint as jckpt
 from tpu2048.train.loop import Trainer as JaxTrainer
 from tpu2048_torch.config import AgentConfig, TrainConfig
+from tpu2048_torch.draws import TorchDraws
 from tpu2048_torch.engine.core import np_move
 from tpu2048_torch.features.ntuple import get_tuple_set
 from tpu2048_torch.obs.logging import Logger
 from tpu2048_torch.obs.metrics import train_history
 from tpu2048_torch.store import checkpoint as ckpt
 from tpu2048_torch.store.artifacts import MemoryStore
-from tpu2048_torch.train.loop import RNG_EXTRA, Trainer
+from tpu2048_torch.train.loop import RNG_DEVICE_EXTRA, RNG_EXTRA, Trainer
 
 ACFG = AgentConfig(n=4)
 TCFG = TrainConfig(num_envs=16, steps_per_call=4, ring_size=256,
@@ -113,9 +115,59 @@ def test_jax_checkpoint_resumes_in_port():
 def test_resume_continues_the_generator_stream(run):
     tr, _, store = run
     saved = tr.draws.generator.get_state()
+    _, _, meta = ckpt.load_agent(store, "p")
+    assert str(meta["extras"][RNG_DEVICE_EXTRA]) == "cpu"
     again = Trainer("p", ACFG, TCFG, store=store, logger=_quiet(),
                     resume=True, device="cpu")
     assert torch.equal(again.draws.generator.get_state(), saved)
+
+
+@pytest.mark.parametrize("tagged", [False, True], ids=["by_size", "by_tag"])
+def test_resume_from_a_card_generator_starts_a_fresh_stream(tagged):
+    """A checkpoint whose generator state came from the card (16 bytes:
+    seed and offset) resumes on the CPU with a fresh stream from the
+    config's seed, and says so in the log.  Checkpoints written before
+    the device tag are judged by the state's size."""
+    store = MemoryStore()
+    extras = {RNG_EXTRA: np.arange(16, dtype=np.uint8)}
+    if tagged:
+        extras[RNG_DEVICE_EXTRA] = np.asarray("cuda")
+    ckpt.save_agent(store, "g", ACFG,
+                    np.zeros(get_tuple_set(4).total, np.float32),
+                    {"episodes": 5}, extras=extras)
+    log = Logger(store=MemoryStore(), console=False)
+    tr = Trainer("g", ACFG, TCFG, store=store, logger=log, resume=True,
+                 device="cpu")
+    # a generator from the seed that drew the fresh env boards only
+    fresh = TorchDraws(torch.Generator().manual_seed(TCFG.seed))
+    fresh.new(TCFG.num_envs)
+    assert torch.equal(tr.draws.generator.get_state(),
+                       fresh.generator.get_state())
+    assert "from cuda, not cpu: a fresh stream from seed 0" in log.tail()
+    assert int(tr.state.metrics.episodes) == 5
+    tr.run(job=_Once())
+    assert int(tr.state.env.odometer.max()) == TCFG.steps_per_call
+
+
+def test_sgd_agent_saves_and_resumes():
+    """The reference's own rule, ``optimizer="sgd", alpha=0.25`` with
+    explicit 8-image indices: no TC sums in the checkpoint, and the
+    schedule's alpha and next decay carried across a resume."""
+    acfg = AgentConfig(n=4, optimizer="sgd", alpha=0.25, sym_impl="index",
+                       decay_step=4)
+    store = MemoryStore()
+    tr = Trainer("s", acfg, TCFG, store=store, logger=_quiet(), device="cpu")
+    out = tr.run()
+    assert out["episodes"] >= TCFG.episodes
+    assert float(tr.state.alpha) < acfg.alpha  # the schedule decayed it
+    _, _, meta = ckpt.load_agent(store, "s")
+    assert "opt_e" not in meta["extras"]
+    again = Trainer("s", acfg, TCFG, store=store, logger=_quiet(),
+                    resume=True, device="cpu")
+    assert torch.equal(again.state.alpha, tr.state.alpha)
+    assert torch.equal(again.state.next_decay, tr.state.next_decay)
+    assert torch.equal(again.state.weights, tr.state.weights)
+    assert again.state.opt_e.shape == (0,)
 
 
 def test_trainer_stops_on_cancel():
@@ -129,24 +181,15 @@ def test_trainer_stops_on_cancel():
     assert int(tr.state.env.odometer.max()) == 0
 
 
-@pytest.mark.parametrize("what", ["mesh", "trace_dir", "representation"])
+@pytest.mark.parametrize("what", ["mesh", "trace_dir"])
 def test_unported_trainer_options_raise(what):
-    store = MemoryStore()
     if what == "mesh":
         with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
             Trainer("x", ACFG, TCFG, mesh=object(), device="cpu")
-    elif what == "trace_dir":
+    else:
         tr = Trainer("x", ACFG, TCFG, logger=_quiet(), device="cpu")
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             tr.run(trace_dir="/nonexistent")
-    else:
-        # a canonical agent converts into a dense table, whose training
-        # (sym_impl="fold") is not ported
-        ckpt.save_agent(store, "x", ACFG,
-                        np.zeros(get_tuple_set(4).total, np.float32))
-        dense = dataclasses.replace(ACFG, sym_impl="fold")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            Trainer("x", dense, TCFG, store=store, resume=True, device="cpu")
 
 
 class _Once:
@@ -184,5 +227,34 @@ def test_dense_checkpoint_resumes_canonical():
     before = tr.state.weights.clone()
     tr.run(job=_Once())
     assert int(tr.state.env.odometer.max()) == tcfg.steps_per_call
+    assert bool(torch.isfinite(tr.state.weights).all())
+    assert not torch.equal(tr.state.weights, before)
+
+
+def test_canonical_checkpoint_resumes_dense():
+    """A canonical n=5 agent (the defaults) saved by the reference with
+    its TC extras resumes in the port as ``sym_impl="fold"``: the
+    weights and both extras are JAX's ``to_dense_table`` of the saved
+    arrays, bitwise, and a segment trains from them."""
+    ts = jnt.get_tuple_set(5)
+    rng = np.random.default_rng(10)
+    w, e, a = (rng.standard_normal(ts.total).astype(np.float32)
+               for _ in range(3))
+    a = np.abs(a)
+    store = MemoryStore()
+    jckpt.save_agent(store, "c", jax_cfg(AgentConfig()), w,
+                     {"episodes": 30, "train_history": [4]},
+                     extras={"opt_e": e, "opt_a": a})
+    dense = AgentConfig(sym_impl="fold")
+    tr = Trainer("c", dense, TCFG, store=store, logger=_quiet(),
+                 resume=True, device="cpu")
+    for name, arr in (("weights", w), ("opt_e", e), ("opt_a", a)):
+        want = np.asarray(jcanon.to_dense_table(ts, jnp.asarray(arr)))
+        np.testing.assert_array_equal(getattr(tr.state, name).numpy(), want,
+                                      err_msg=name)
+    assert int(tr.state.metrics.episodes) == 30
+    before = tr.state.weights.clone()
+    tr.run(job=_Once())
+    assert int(tr.state.env.odometer.max()) == TCFG.steps_per_call
     assert bool(torch.isfinite(tr.state.weights).all())
     assert not torch.equal(tr.state.weights, before)

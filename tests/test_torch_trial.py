@@ -174,6 +174,15 @@ def test_port_imports_no_jax():
             r = trial(ntuple.get_tuple_set(4), w, num=2, seed=0,
                       steps_per_call=64)
             assert r.odometers.min() > 0
+            # a learner off the defaults: the reference's own rule
+            tr = Trainer("s", AgentConfig(n=4, optimizer="sgd", alpha=0.25,
+                                          sym_impl="index"),
+                         TrainConfig(num_envs=8, steps_per_call=2),
+                         store=store, logger=Logger(console=False),
+                         device="cpu")
+            tr.run(job=Once())
+            assert int(tr.state.env.odometer.max()) == 2
+            assert tr.state.prev_idx.shape[1] == 8
         assert "jax" not in sys.modules, "the port loaded jax"
         ref = sorted(m for m in sys.modules
                      if m == "tpu2048" or m.startswith("tpu2048."))

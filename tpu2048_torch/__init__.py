@@ -16,7 +16,7 @@ Three paths are ported.  Greedy play of a stored agent:
            -> ops/kernels.eval_class (CUDA) for the 16^2..16^4 classes
            -> plain gathers for the 16^5 classes
 
-and training at the shipped configuration on one device:
+and training on one device, at the shipped configuration:
 
     train/loop.Trainer -> agent/td.make_train_segment -> make_train_step
       -> ops/dispatch.make_train_evaluator (eval_class, bf16) and
@@ -25,6 +25,12 @@ and training at the shipped configuration on one device:
          -> the class block's temporal-coherence update
       -> the crosses' sparse update at canonical-orbit indices
       -> spawn, metrics rings, auto-reset, staged recorder rows
+
+and at every other learner setting of ``AgentConfig`` (the sgd rule
+and its alpha schedule, "sum" updates, "fold", "index", "periodic"
+and "none" symmetry, the "bf16x2" actor, the cells engine), whose
+whole-table updates go through ``ops/dispatch.make_delta_accumulator``
+and ``make_updater`` (``grad_class`` for the 16^2..16^4 classes),
 
 and expectimax search through ``trial(search=SearchConfig(depth>0))``.
 

@@ -1,34 +1,52 @@
 """Batched TD(0) n-tuple actor-learner (``tpu2048/agent/td.py``).
 
 N environments step in lockstep on one device.  Per step the actor
-picks the greedy afterstate of every env, and the learner applies the
-temporal-coherence (TC) update of the previous afterstate with the
-reference's semantics: gamma 1, greedy play, ``dw = (reward +
-V(s'_best) - V(s_prev)) / num_feat`` with ``V(s'_best)`` read before
-this step's update, ``-V(s_last) / num_feat`` at game over, the same
-dw on all 8 D4 images, and each entry's summed update divided by its
-hit count this step ("mean").
+picks the greedy afterstate of every env, and the learner updates the
+previous afterstate with the reference's semantics: gamma 1, greedy
+play, the TD error ``reward + V(s'_best) - V(s_prev)`` with
+``V(s'_best)`` read before this step's update, ``-V(s_last)`` at game
+over, and the same update on all 8 D4 images of the board.  Every
+setting of ``AgentConfig`` trains:
 
-The port covers the shipped configuration only: ``sym_impl=
-"canonical"``, ``optimizer="tc"``, ``update_mode="mean"``,
-``engine_mode="codes"``, ``actor_precision="bf16"``.  Every other
-setting raises ``NotImplementedError``.
+  * ``optimizer``: "tc", temporal coherence (per-weight rate |E| / A,
+    ``alpha`` a meta-rate, ``dw = td / num_feat``); or "sgd", the
+    reference's own rule (``dw = td * alpha / num_feat``) with its
+    alpha decay every ``decay_step`` episodes and at every new top
+    tile;
+  * ``update_mode``: "mean", each entry's summed update divided by its
+    hit count this step; or "sum", the raw scatter-add;
+  * ``sym_mode="scatter"`` with ``sym_impl``: "canonical", one entry
+    per D4 orbit of the gather classes (16^5 and up) and a class-local
+    fold of the 16^2..16^4 classes' gradient; "fold", identity updates
+    into a full-table [dsum; hits] pair and its D4 orbit sum; "index",
+    explicit (N, 8, F) image indices.  ``sym_mode="periodic"``:
+    identity updates, the tables projected onto the D4-symmetric
+    subspace at each segment's end; "none": identity updates only;
+  * ``actor_precision``: "bf16", selection over 4N rows with bf16
+    class weights and an exact re-evaluation of the chosen afterstate
+    as the bootstrap; or "bf16x2", exact selection whose chosen value
+    is the bootstrap;
+  * ``engine_mode``: "codes", packed row codes; or "cells", (N, 4, 4)
+    boards through ``engine.core``.
+
+As in the reference, the learners off the canonical form divide each
+entry's summed TC update by its hits whatever ``update_mode`` says.
 
 Forms that differ from the reference, with the same results:
-  * the weight table and the TC accumulators are three flat tensors,
-    updated IN PLACE (about 64 MB of copies a step saved at n=5); so
-    are the metrics rings and the recorder's logs.  A caller that
-    needs the state before a step keeps a copy.  The reference's
-    read-before-write order holds: the bootstrap value reads the
-    weights before the update, each class block's TC rule reads its
-    own w/E/A block before writing it, and the crosses gather E/A
-    before their scatters;
+  * the weight table and the TC accumulators are flat tensors updated
+    IN PLACE (about 64 MB of copies a step saved at n=5); so are the
+    metrics rings and the recorder's logs.  A caller that needs the
+    state before a step keeps a copy.  The reference's read-before-
+    write order holds: the bootstrap value reads the weights before
+    the update, each table rule reads its own w/E/A before writing it,
+    and the crosses gather E/A before their scatters;
   * randomness comes from a draw source (``..draws``), not a key in
     the state;
-  * the step always stages its recorder rows (``RecStep``); the
-    segment merges them once (``_merge_staged_recorder``).  The
-    reference's per-step log scatter and its packed (3, total) scan
-    carry are TPU layouts and are not ported;
+  * ``make_train_step`` stages its recorder rows (``RecStep``) unless
+    asked not to (``staged=False``, the reference's default, writes
+    the logs and the best game every step); the segment stages and
+    merges them once (``_merge_staged_recorder``).  The reference's
+    packed (3, total) scan carry is a TPU layout and is not ported;
   * the recorder's (R, S) logs carry one spill column S, where writes
     of lanes that do not record land (the reference drops them).
 """
@@ -36,22 +54,33 @@ Forms that differ from the reference, with the same results:
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from ..config import AgentConfig, TrainConfig
 from ..draws import Draws
+from ..engine import core as engine
 from ..engine import fast as engf
-from ..features.canonical import _gather_feat_ids, is_canonical
+from ..features import ntuple
+from ..features.canonical import (_gather_feat_ids, canonical_gather_indices,
+                                  is_canonical)
 from ..features.ntuple import TupleSet
-from ..features.symmetry import symmetrize_class_sum
+from ..features.symmetry import (symmetrize_class_sum, symmetrize_sum,
+                                 symmetrize_table)
 from ..ops import dispatch as table_dispatch
 from ..ops import kernels
 
-NOT_PORTED = ('ROADMAP.md Queue 1 item 4 ("Learner variants off the '
-              'defaults")')
+# the documented values of the learner's settings (``config.py``)
+_SETTINGS = {
+    "optimizer": ("tc", "sgd"),
+    "update_mode": ("mean", "sum"),
+    "sym_mode": ("scatter", "periodic", "none"),
+    "sym_impl": ("canonical", "fold", "index"),
+    "actor_precision": ("bf16", "bf16x2"),
+    "engine_mode": ("codes", "cells"),
+}
 
 
 class Metrics(NamedTuple):
@@ -81,19 +110,23 @@ class Recorder(NamedTuple):
 
 class TDState(NamedTuple):
     weights: torch.Tensor  # (total,) f32 flat n-tuple table
-    opt_e: torch.Tensor  # (total,) f32 TC signed delta sums
-    opt_a: torch.Tensor  # (total,) f32 TC absolute delta sums
-    alpha: torch.Tensor  # f32 scalar (TC meta-rate)
-    next_decay: torch.Tensor  # i32 scalar
+    # TC signed / absolute delta sums: (total,) f32 under "tc", (0,)
+    # placeholders under "sgd"
+    opt_e: torch.Tensor
+    opt_a: torch.Tensor
+    alpha: torch.Tensor  # f32 scalar (sgd rate, or the TC meta-rate)
+    next_decay: torch.Tensor  # i32 scalar: episode count of the next decay
     top_tile: torch.Tensor  # i32 scalar (exponent; starts at 10)
-    env: engf.EnvStateC
-    prev_idx: torch.Tensor  # (N, 1, F) i32 features of prev afterstate
+    env: Union[engf.EnvStateC, engine.EnvState]  # codes or cells engine
+    prev_idx: torch.Tensor  # (N, num_sym, F) i32 features of prev afterstate
     prev_value: torch.Tensor  # (N,) f32
     prev_valid: torch.Tensor  # (N,) bool
     metrics: Metrics
     recorder: Recorder
-    prev_cidx: torch.Tensor  # (N, K) i32 canonical gather-class indices
-    prev_cmult: torch.Tensor  # (N, K) i32 their orbit multiplicities
+    # canonical gather-class indices of the prev afterstate and their
+    # orbit multiplicities: (N, K) under sym_impl="canonical", else (N, 0)
+    prev_cidx: torch.Tensor
+    prev_cmult: torch.Tensor
 
 
 class RecStep(NamedTuple):
@@ -129,15 +162,56 @@ def _canon_feat_count(ts: TupleSet, acfg: AgentConfig) -> int:
     return len(_gather_feat_ids(ts.n)) if is_canonical(acfg) else 0
 
 
-def _check_supported(acfg: AgentConfig) -> None:
-    shipped = AgentConfig()
-    for name in ("optimizer", "update_mode", "sym_mode", "sym_impl",
-                 "actor_precision", "engine_mode"):
-        got, want = getattr(acfg, name), getattr(shipped, name)
-        if got != want:
-            raise NotImplementedError(
-                f"{name}={got!r} is not ported yet (the port trains "
-                f"{name}={want!r} only); it waits for {NOT_PORTED}")
+def _check_settings(acfg: AgentConfig) -> None:
+    for name, values in _SETTINGS.items():
+        if getattr(acfg, name) not in values:
+            raise ValueError(f"AgentConfig.{name}={getattr(acfg, name)!r}: "
+                             f"expected one of {values}")
+
+
+def _round4(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``round(alpha, 4)`` in f32, halves to even.  XLA
+    turns the reference's division by 10000 into a product with the f32
+    reciprocal, which rounds differently; the product keeps alpha
+    bitwise the reference's."""
+    return torch.round(x * 10000.0) * 1e-4
+
+
+def evaluate_boards(ts: TupleSet, weights: torch.Tensor,
+                    boards: torch.Tensor) -> torch.Tensor:
+    """V(s) of (..., 4, 4) boards: num_feat gathers and their sum."""
+    return ntuple.evaluate(ts, weights,
+                           boards.reshape(boards.shape[:-2] + (16,)))
+
+
+def make_select_greedy(ts: TupleSet, eval_fn=None):
+    """The batched greedy afterstate selector of the cells engine over
+    a table evaluator (``ops/dispatch.py``; default ``ntuple.evaluate``).
+
+    ``select(weights, boards (N, 4, 4))`` returns (chosen (N, 4, 4),
+    best_dir (N,) i32, best_val (N,), delta (N,), done (N,)); ``done``
+    is no legal move.  Ties go to the lowest direction, as in the
+    reference's strict ``>`` scan over directions 0..3."""
+    if eval_fn is None:
+        def eval_fn(weights, flat_boards):
+            return ntuple.evaluate(ts, weights, flat_boards)
+
+    def select(weights: torch.Tensor, boards: torch.Tensor):
+        aft, delta, legal = engine.afterstates(boards)  # (4, N, ...)
+        vals = eval_fn(weights, aft.reshape(aft.shape[:-2] + (16,)))
+        masked = torch.where(legal, vals, float("-inf"))
+        best_dir = masked.argmax(dim=0).to(torch.int32)
+        ar = torch.arange(boards.shape[0], device=boards.device)
+        sel_i = best_dir.long()
+        return (aft[sel_i, ar], best_dir, masked[sel_i, ar],
+                delta[sel_i, ar], ~legal.any(dim=0))
+
+    return select
+
+
+def select_greedy(ts: TupleSet, weights: torch.Tensor, boards: torch.Tensor):
+    """``make_select_greedy`` over plain gathers."""
+    return make_select_greedy(ts)(weights, boards)
 
 
 def init_td_state(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
@@ -145,15 +219,22 @@ def init_td_state(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
                   weights: Optional[torch.Tensor] = None) -> TDState:
     """A fresh train state on ``device``: U[0, 0.01) weights from
     ``draws.uniform`` unless ``weights`` is given, fresh boards from
-    ``draws.new``, zeroed TC accumulators, rings and logs."""
+    ``draws.new``, zeroed TC accumulators (placeholders under "sgd"),
+    rings and logs."""
     device = torch.device(device)
     n, s = tcfg.num_envs, tcfg.max_record_steps
     r_env = record_env_count(tcfg)
     if weights is None:
         weights = draws.uniform((ts.total,)) * 0.01
     weights = weights.to(device=device, dtype=torch.float32).contiguous()
-    env = engf.init_env_codes(n, draws)
-    env = engf.EnvStateC(*(t.to(device) for t in env))
+    if acfg.engine_mode == "codes":
+        env = engf.init_env_codes(n, draws)
+        env = engf.EnvStateC(*(t.to(device) for t in env))
+        starts = engf.boards_from_codes(env.codes[:r_env])
+    else:
+        env = engine.init_env(n, draws)
+        env = engine.EnvState(*(t.to(device) for t in env))
+        starts = env.boards[:r_env].clone()
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -165,7 +246,7 @@ def init_td_state(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     rec = Recorder(
         moves=zeros((r_env, s + 1), i8),
         spawns=zeros((r_env, s + 1), i8),
-        starts=engf.boards_from_codes(env.codes[:r_env]),
+        starts=starts,
         overflow=zeros((r_env,), torch.bool),
         best_moves=zeros((s,), i8),
         best_spawns=zeros((s,), i8),
@@ -214,12 +295,27 @@ def _tc_rate(e: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return torch.where(a > 0.0, e.abs() / a.clamp(min=1e-30), 1.0)
 
 
+def _tc_apply(w: torch.Tensor, e: torch.Tensor, a: torch.Tensor,
+              alpha: torch.Tensor, dbar: torch.Tensor) -> None:
+    """The TC rule on one table (or block), in place: the rate from E
+    and A before they take ``dbar``."""
+    lr = _tc_rate(e, a)
+    w.add_(alpha * lr * dbar)
+    e.add_(dbar)
+    a.add_(dbar.abs())
+
+
 def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
-                    draws: Draws):
-    """The batched TD(0) train step: ``step(state) -> (state,
-    RecStep)``.  Updates the state's tables, rings and its step-local
-    recorder fields in place (see the module doc); draws its spawns
+                    draws: Draws, staged: bool = True):
+    """The batched TD(0) train step.  Updates the state's tables,
+    rings and recorder in place (see the module doc); draws its spawns
     and resets from ``draws``.
+
+    ``staged=True`` (the port's default): ``step(state) -> (state,
+    RecStep)``; the logs and the best game are left to the segment's
+    merge.  ``staged=False`` (the reference's default): ``step(state)
+    -> state``, the step's moves and spawns written into the logs and
+    the best finished game kept, as the reference's unstaged step does.
 
     ``acfg.table_ops`` resolves per call from the weights' device:
     "auto" takes the CUDA kernels (``eval_class``, ``grad_class``,
@@ -227,56 +323,85 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     takes the kernels' wrappers on any device (their plain versions on
     CPU tensors); "search" is "pallas" on the card and "gather"
     elsewhere; "gather" takes plain torch everywhere."""
-    _check_supported(acfg)
+    _check_settings(acfg)
     num_feat = ts.num_feat
     ring = tcfg.ring_size
     r_env = record_env_count(tcfg)
     s_max = tcfg.max_record_steps
-    classes_c, class_grads = table_dispatch.make_class_grads(
-        ts, acfg.table_ops)
-    # selection in bf16 over 4N rows; the chosen afterstate's value is
-    # re-derived exactly from its indices (the TD bootstrap)
-    train_ev = table_dispatch.make_train_evaluator(
-        ts, acfg.table_ops, canonical=True, precision="bf16")
-    mxu_exact = table_dispatch.make_mxu_eval_idx(ts, acfg.table_ops)
+    num_sym = _num_sym(acfg)
+    ops = acfg.table_ops
+    canon = is_canonical(acfg)
+    tc = acfg.optimizer == "tc"
+    mean = acfg.update_mode == "mean"
+    fold_step = acfg.sym_mode == "scatter" and acfg.sym_impl == "fold"
+    codes_mode = acfg.engine_mode == "codes"
+    actor_bf16 = acfg.actor_precision == "bf16"
+
+    if canon:
+        classes_c, class_grads = table_dispatch.make_class_grads(ts, ops)
+    elif tc or fold_step:
+        accumulate = table_dispatch.make_delta_accumulator(ts, ops)
+    else:
+        update = table_dispatch.make_updater(ts, ops, mean=mean)
+    if codes_mode:
+        # "bf16": selection in bf16 over 4N rows, the chosen
+        # afterstate's value then re-derived exactly from its indices
+        # (the TD bootstrap); "bf16x2": exact selection
+        train_ev = table_dispatch.make_train_evaluator(
+            ts, ops, canonical=canon,
+            precision="bf16" if actor_bf16 else None)
+        if actor_bf16:
+            mxu_exact = table_dispatch.make_mxu_eval_idx(ts, ops)
+    else:
+        select = make_select_greedy(
+            ts, table_dispatch.make_evaluator(ts, ops, canonical=canon))
 
     def fold(c, pair):
-        if table_dispatch.uses_kernels(acfg.table_ops, pair.device):
+        if table_dispatch.uses_kernels(ops, pair.device):
             return kernels.fold_class(ts, c.feat0, c.g, pair)
         return symmetrize_class_sum(ts, c.feat0, c.g, pair)
 
     def class_block_update(state: TDState, delta: torch.Tensor) -> None:
-        """16^2..16^4 classes: [dsum; hits] pairs, their D4 fold, and
-        the TC rule on each class block, in place."""
+        """Canonical form, 16^2..16^4 classes: [dsum; hits] pairs,
+        their D4 fold, and the optimizer's rule on each class block,
+        in place."""
         pairs = class_grads(state.prev_idx.reshape(-1, num_feat), delta,
                             state.prev_valid)
         for c, pair in zip(classes_c.matmul, pairs):
             nsz = c.g * c.h * c.l
             # the gradient pair is the fold's input as it stands
             pair = fold(c, pair.view(2, c.g, c.h * c.l))
-            dbar = pair[0].reshape(nsz) / pair[1].reshape(nsz).clamp(min=1.0)
+            dsum, hits = pair[0].reshape(nsz), pair[1].reshape(nsz)
             blk = slice(c.start, c.start + nsz)
-            w_blk = state.weights[blk]
-            e_blk = state.opt_e[blk]
-            a_blk = state.opt_a[blk]
-            lr_b = _tc_rate(e_blk, a_blk)
-            w_blk.add_(state.alpha * lr_b * dbar)
-            e_blk.add_(dbar)
-            a_blk.add_(dbar.abs())
+            if tc:
+                _tc_apply(state.weights[blk], state.opt_e[blk],
+                          state.opt_a[blk], state.alpha,
+                          dsum / hits.clamp(min=1.0))
+            else:
+                state.weights[blk].add_(dsum / hits.clamp(min=1.0)
+                                        if mean else dsum)
 
     def cross_update(state: TDState, delta: torch.Tensor) -> None:
-        """Gather classes: one sparse TC update at the canonical-orbit
-        indices, each hit divided by its entry's exact hit count this
-        step (canonical indices collide often: near-empty boards share
-        orbits), in place."""
+        """Canonical form, gather classes: one sparse update at the
+        canonical-orbit indices, in place.  "sum" scales each hit by
+        its orbit multiplicity (the exact 8-image total); "mean"
+        divides it by the entry's exact hit count this step (canonical
+        indices collide often: near-empty boards share orbits)."""
         cidx = state.prev_cidx
+        per = delta[:, None].expand(cidx.shape)
+        if not mean:
+            per = per * state.prev_cmult.to(torch.float32)
         valid = state.prev_valid[:, None].expand(cidx.shape)
-        per = torch.where(valid, delta[:, None], 0.0)
+        per = torch.where(valid, per, 0.0)
         flat = cidx.reshape(-1).long()
-        hits_g = torch.zeros(ts.total, dtype=torch.float32,
-                             device=cidx.device)
-        hits_g.index_add_(0, flat, valid.to(torch.float32).reshape(-1))
-        per = per / hits_g[cidx.long()].clamp(min=1.0)
+        if mean:
+            hits_g = torch.zeros(ts.total, dtype=torch.float32,
+                                 device=cidx.device)
+            hits_g.index_add_(0, flat, valid.to(torch.float32).reshape(-1))
+            per = per / hits_g[cidx.long()].clamp(min=1.0)
+        if not tc:
+            state.weights.index_add_(0, flat, per.reshape(-1))
+            return
         # gather E/A before any of the three scatters
         lr_g = _tc_rate(state.opt_e[flat], state.opt_a[flat]).view(cidx.shape)
         state.weights.index_add_(0, flat,
@@ -284,81 +409,162 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
         state.opt_e.index_add_(0, flat, per.reshape(-1))
         state.opt_a.index_add_(0, flat, per.abs().reshape(-1))
 
-    def train_step(state: TDState) -> Tuple[TDState, RecStep]:
+    def table_update(state: TDState, td_err: torch.Tensor) -> None:
+        """Off the canonical form: the update over the whole table, at
+        the (N * num_sym, F) rows of ``prev_idx``, in place."""
+        n = td_err.shape[0]
+        idx = state.prev_idx.reshape(n * num_sym, num_feat)
+        valid = state.prev_valid[:, None].expand(n, num_sym).reshape(-1)
+        if tc:
+            delta = torch.where(state.prev_valid, td_err, 0.0) / float(num_feat)
+            pair = accumulate(state.weights, idx,
+                              delta[:, None].expand(n, num_sym).reshape(-1),
+                              valid)
+            if fold_step:
+                pair = symmetrize_sum(ts, pair)
+            # the hit mean whatever update_mode says, as the reference
+            _tc_apply(state.weights, state.opt_e, state.opt_a, state.alpha,
+                      pair[0] / pair[1].clamp(min=1.0))
+            return
+        dw = torch.where(state.prev_valid, td_err, 0.0) * (
+            state.alpha / float(num_feat))
+        dw = dw[:, None].expand(n, num_sym).reshape(-1)
+        if not fold_step:
+            update(state.weights, idx, dw, valid)
+        elif mean:
+            pair = symmetrize_sum(ts, accumulate(state.weights, idx, dw,
+                                                 valid))
+            state.weights.add_(pair[0] / pair[1].clamp(min=1.0))
+        else:
+            dsum = accumulate(state.weights, idx, dw, valid)[0]
+            state.weights.add_(symmetrize_sum(ts, dsum))
+
+    def train_step(state: TDState):
         draws.split()
-        codes = state.env.codes
         score = state.env.score
-        device = codes.device
-        n = codes.shape[0]
+        device = score.device
+        n = score.shape[0]
         ar = torch.arange(n, device=device)
 
         # --- greedy selection over the 4 afterstates ------------------
-        aftc, delta4, legal, _t = engf.afterstates_full(codes)
-        cells4 = engf.cells_from_codes(aftc)  # (4, N, 16)
-        # up/down come back transposed: permute their cells back
-        tperm = _tperm(device)
-        cells4 = torch.stack([cells4[0], cells4[1][..., tperm],
-                              cells4[2], cells4[3][..., tperm]])
-        mxu4, gth4, idx4, cidx4, mult4 = train_ev(state.weights, cells4)
-        masked = torch.where(legal, mxu4 + gth4, float("-inf"))
-        # argmax takes the first maximum in both frameworks
-        best_dir = masked.argmax(dim=0).to(torch.int32)
-        sel_i = best_dir.long()
+        if codes_mode:
+            codes = state.env.codes
+            aftc, delta4, legal, _t = engf.afterstates_full(codes)
+            cells4 = engf.cells_from_codes(aftc)  # (4, N, 16)
+            # up/down come back transposed: permute their cells back
+            tperm = _tperm(device)
+            cells4 = torch.stack([cells4[0], cells4[1][..., tperm],
+                                  cells4[2], cells4[3][..., tperm]])
+            mxu4, gth4, idx4, cidx4, mult4 = train_ev(state.weights, cells4)
+            masked = torch.where(legal, mxu4 + gth4, float("-inf"))
+            # argmax takes the first maximum in both frameworks
+            best_dir = masked.argmax(dim=0).to(torch.int32)
+            sel_i = best_dir.long()
 
-        def sel(x4):
-            return x4[sel_i, ar]
+            def sel(x4):
+                return x4[sel_i, ar]
 
-        best_delta = sel(delta4)
-        done = ~legal.any(dim=0)
-        idx_c = sel(idx4)  # (N, F)
-        # exact TD bootstrap from the chosen afterstate's indices, read
-        # before this step's update (unused on done rows)
-        best_val = mxu_exact(state.weights, idx_c) + sel(gth4)
-        chosen_codes = engf.canonicalize_chosen(sel(aftc), best_dir)
+            best_delta = sel(delta4)
+            done = ~legal.any(dim=0)
+            idx_c = sel(idx4)  # (N, F)
+            # the chosen board's cells: for its 8 images under "index"
+            chosen_cells = sel(cells4) if num_sym == 8 else None
+            if actor_bf16:
+                # exact TD bootstrap from the chosen afterstate's
+                # indices, read before this step's update (unused on
+                # done rows)
+                best_val = mxu_exact(state.weights, idx_c) + sel(gth4)
+            else:
+                best_val = sel(masked)
+            chosen_codes = engf.canonicalize_chosen(sel(aftc), best_dir)
+        else:
+            boards = state.env.boards
+            chosen, best_dir, best_val, best_delta, done = select(
+                state.weights, boards)
+            chosen_cells = chosen.reshape(n, 16)
 
         # --- TD update of the previous afterstate ---------------------
         td_err = torch.where(done, -state.prev_value,
                              best_delta.to(torch.float32) + best_val
                              - state.prev_value)
-        delta = torch.where(state.prev_valid, td_err, 0.0) / float(num_feat)
-        class_block_update(state, delta)
-        if state.prev_cidx.shape[1]:
-            cross_update(state, delta)
+        if canon:
+            delta = torch.where(state.prev_valid, td_err, 0.0) / float(num_feat)
+            if not tc:
+                delta = delta * state.alpha
+            class_block_update(state, delta)
+            if state.prev_cidx.shape[1]:
+                cross_update(state, delta)
+        else:
+            table_update(state, td_err)
 
         # --- advance the environments ---------------------------------
-        done_c = done[:, None]
         new_score = torch.where(done, score, score + best_delta)
         new_odo = torch.where(done, state.env.odometer,
                               state.env.odometer + 1)
-        moved = torch.where(done_c, codes, chosen_codes)
-        spawned, pos, val = engf.spawn_codes(moved, draws)
-        env = engf.EnvStateC(codes=torch.where(done_c, codes, spawned),
-                             score=new_score, odometer=new_odo)
+        if codes_mode:
+            done_c = done[:, None]
+            moved = torch.where(done_c, codes, chosen_codes)
+            spawned, pos, val = engf.spawn_codes(moved, draws)
+            env = engf.EnvStateC(codes=torch.where(done_c, codes, spawned),
+                                 score=new_score, odometer=new_odo)
+            tiles = engf.max_tile_codes(codes)
+        else:
+            done_b = done[:, None, None]
+            moved = torch.where(done_b, boards, chosen)
+            spawned, pos, val = engine.spawn(moved, draws)
+            env = engine.EnvState(boards=torch.where(done_b, boards, spawned),
+                                  score=new_score, odometer=new_odo)
+            tiles = engine.max_tile(boards)
 
-        # --- recorder rows (merged once per segment) ------------------
+        # --- recorder: rows staged, or written into the logs ----------
         rec = state.recorder
         done_r = done[:r_env]
         odo_r = state.env.odometer[:r_env]
         overflow = rec.overflow | (~done_r & (odo_r >= s_max))
         rec_on = ~done_r & ~overflow
         done_rec = done_r & ~overflow
-        recinfo = RecStep(
-            mv=best_dir[:r_env].to(torch.int8),
-            sp=(pos[:r_env] | ((val[:r_env] - 1) << 4)).to(torch.int8),
-            wslot=torch.where(rec_on, odo_r, s_max).to(torch.int32),
-            done=done_r,
-            cand=torch.where(done_rec, score[:r_env], -1),
-            odo=odo_r,
-            sb=torch.where(done_rec[:, None], rec.starts.reshape(r_env, 16),
-                           0).to(torch.int8),
-        )
+        mv = best_dir[:r_env].to(torch.int8)
+        sp = (pos[:r_env] | ((val[:r_env] - 1) << 4)).to(torch.int8)
+        wslot = torch.where(rec_on, odo_r, s_max).to(torch.int32)
+        cand = torch.where(done_rec, score[:r_env], -1)
+        if staged:
+            recinfo = RecStep(
+                mv=mv, sp=sp, wslot=wslot, done=done_r, cand=cand,
+                odo=odo_r,
+                sb=torch.where(done_rec[:, None],
+                               rec.starts.reshape(r_env, 16), 0
+                               ).to(torch.int8),
+            )
+        else:
+            # non-recording lanes write the spill column S
+            rows = torch.arange(r_env, device=device)
+            rec.moves.index_put_((rows, wslot.long()), mv)
+            rec.spawns.index_put_((rows, wslot.long()), sp)
+            # the best finished game, from its log row after this write
+            best_i = cand.argmax().view(1)
+            cand_b = cand[best_i][0]
+            take = cand_b > rec.best_score
+            rec = rec._replace(
+                best_moves=torch.where(
+                    take, rec.moves.index_select(0, best_i)[0, :s_max],
+                    rec.best_moves),
+                best_spawns=torch.where(
+                    take, rec.spawns.index_select(0, best_i)[0, :s_max],
+                    rec.best_spawns),
+                best_start=torch.where(
+                    take, rec.starts.index_select(0, best_i)[0],
+                    rec.best_start),
+                best_len=torch.where(
+                    take, state.env.odometer[best_i][0].clamp(max=s_max),
+                    rec.best_len),
+                best_score=torch.where(take, cand_b, rec.best_score),
+            )
 
         # --- episode-completion metrics -------------------------------
         met = state.metrics
         n_done = done.sum(dtype=torch.int32)
         order = done.cumsum(0, dtype=torch.int32) - 1
         wpos = torch.where(done, (met.ring_pos + order) % ring, ring).long()
-        tiles = engf.max_tile_codes(codes)
         met.score_ring.index_put_((wpos,), score)
         met.tile_ring.index_put_((wpos,), tiles)
         metrics = Metrics(
@@ -369,26 +575,59 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
             best_score=torch.maximum(met.best_score,
                                      torch.where(done, score, 0).max()),
         )
-        # the TC rule skips the alpha schedule; the top tile still moves
-        top_tile = torch.maximum(state.top_tile,
-                                 torch.where(done, tiles, 0).max())
+
+        # --- alpha schedule (skipped by the self-annealing TC rule) ---
+        alpha, next_decay = state.alpha, state.next_decay
+        mt_done = torch.where(done, tiles, 0).max()
+        top_tile = torch.maximum(state.top_tile, mt_done)
+        if not tc:
+            # f32 throughout: the Python floats take the tensor's type
+            low = acfg.low_alpha_limit
+
+            def decayed(a):
+                return _round4((a * acfg.decay).clamp(min=low))
+
+            # every decay_step episodes (the count after this step's
+            # completions), and at a new top tile (against the old one)
+            trig1 = (metrics.episodes > next_decay) & (alpha > low)
+            alpha = torch.where(trig1, decayed(alpha), alpha)
+            trig2 = mt_done > state.top_tile
+            alpha = torch.where(trig2, decayed(alpha), alpha)
+            next_decay = torch.where(trig1 | trig2,
+                                     metrics.episodes + acfg.decay_step,
+                                     next_decay)
 
         # --- auto-reset finished envs ---------------------------------
-        env = engf.reset_where_codes(env, done, draws)
-        fresh = engf.boards_from_codes(env.codes[:r_env])
+        if codes_mode:
+            env = engf.reset_where_codes(env, done, draws)
+            fresh = engf.boards_from_codes(env.codes[:r_env])
+        else:
+            env = engine.reset_where(env, done, draws)
+            fresh = env.boards[:r_env]
         starts = torch.where(done_r[:, None, None], fresh, rec.starts)
         overflow = overflow & ~done_r
 
         # --- next step's bootstrap state ------------------------------
+        if num_sym == 8:
+            sym_idx = ntuple.all_symmetry_indices(ts, chosen_cells)
+        elif codes_mode:
+            sym_idx = idx_c[:, None, :]  # selected, not recomputed
+        else:
+            sym_idx = ntuple.feature_indices(ts, chosen_cells)[:, None, :]
         prev_cidx, prev_cmult = state.prev_cidx, state.prev_cmult
         if prev_cidx.shape[1]:
-            prev_cidx = torch.where(done_c, prev_cidx, sel(cidx4))
-            prev_cmult = torch.where(done_c, prev_cmult, sel(mult4))
+            if codes_mode:
+                cidx_n, cmult_n = sel(cidx4), sel(mult4)
+            else:
+                cidx_n, cmult_n = canonical_gather_indices(ts, chosen_cells)
+            prev_cidx = torch.where(done[:, None], prev_cidx, cidx_n)
+            prev_cmult = torch.where(done[:, None], prev_cmult, cmult_n)
         out = state._replace(
+            alpha=alpha,
+            next_decay=next_decay,
             top_tile=top_tile,
             env=env,
-            prev_idx=torch.where(done[:, None, None], state.prev_idx,
-                                 idx_c[:, None, :]),
+            prev_idx=torch.where(done[:, None, None], state.prev_idx, sym_idx),
             prev_value=torch.where(done, 0.0, best_val),
             prev_valid=~done,
             metrics=metrics,
@@ -396,7 +635,7 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
             prev_cidx=prev_cidx,
             prev_cmult=prev_cmult,
         )
-        return out, recinfo
+        return (out, recinfo) if staged else out
 
     return train_step
 
@@ -499,10 +738,12 @@ def _merge_staged_recorder(rec: Recorder, starts0: torch.Tensor,
 
 def make_train_segment(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
                        draws: Draws):
-    """``tcfg.steps_per_call`` train steps, then one merge of their
-    staged recorder rows: ``segment(state) -> state``.  The
-    reference's ``lax.scan`` is a Python loop here; the host reads
-    nothing from the device inside it."""
+    """``tcfg.steps_per_call`` staged train steps, then one merge of
+    their recorder rows: ``segment(state) -> state``.  The reference's
+    ``lax.scan`` is a Python loop here; the host reads nothing from the
+    device inside it.  Under ``sym_mode="periodic"`` the segment ends
+    by projecting the weights (and the TC sums) onto the D4-symmetric
+    subspace (``symmetrize_table``), as the reference's does."""
     step = make_train_step(ts, acfg, tcfg, draws)
 
     def segment(state: TDState) -> TDState:
@@ -512,7 +753,14 @@ def make_train_segment(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
             state, rs = step(state)
             recs.append(rs)
         stacked = RecStep(*(torch.stack(f) for f in zip(*recs)))
-        return state._replace(recorder=_merge_staged_recorder(
+        state = state._replace(recorder=_merge_staged_recorder(
             state.recorder, starts0, stacked, tcfg.max_record_steps))
+        if acfg.sym_mode == "periodic":
+            state = state._replace(weights=symmetrize_table(ts, state.weights))
+            if acfg.optimizer == "tc":
+                state = state._replace(
+                    opt_e=symmetrize_table(ts, state.opt_e),
+                    opt_a=symmetrize_table(ts, state.opt_a))
+        return state
 
     return segment

@@ -216,6 +216,27 @@ def feature_indices(ts: TupleSet, flat_boards: torch.Tensor) -> torch.Tensor:
     return local + offsets
 
 
+@lru_cache(maxsize=None)
+def _sym_perms(n: int, device: torch.device) -> torch.Tensor:
+    # moved to the device once (a per-step host copy would synchronise)
+    return torch.from_numpy(get_tuple_set(n).sym_perms).long().to(device)
+
+
+def all_symmetry_indices(ts: TupleSet, flat_boards: torch.Tensor
+                         ) -> torch.Tensor:
+    """(..., 16) -> (..., 8, num_feat) int32 indices of all 8 D4 board
+    images: the board permuted by ``ts.sym_perms``, then
+    ``feature_indices`` (integer arithmetic throughout)."""
+    permuted = flat_boards[..., _sym_perms(ts.n, flat_boards.device)]
+    return feature_indices(ts, permuted)
+
+
+def evaluate(ts: TupleSet, weights: torch.Tensor,
+             flat_boards: torch.Tensor) -> torch.Tensor:
+    """V(s) = the sum of the num_feat gathered weights, (...,) f32."""
+    return weights[feature_indices(ts, flat_boards).long()].sum(dim=-1)
+
+
 def init_weights(ts: TupleSet, generator: torch.Generator) -> torch.Tensor:
     """U[0, 0.01) init, on the generator's device."""
     return torch.rand(ts.total, generator=generator,

@@ -119,6 +119,18 @@ def symmetrize_sum(ts: TupleSet, delta: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def fold_other_symmetries(ts: TupleSet, delta: torch.Tensor) -> torch.Tensor:
+    """Sum over the 7 non-identity D4 transforms of ``delta``:
+    ``symmetrize_sum(ts, delta) - delta``, as in the reference."""
+    return symmetrize_sum(ts, delta) - delta
+
+
+def symmetrize_table(ts: TupleSet, w: torch.Tensor) -> torch.Tensor:
+    """Average of a table over its full D4 orbit (the symmetric
+    projection): ``symmetrize_sum / 8``."""
+    return symmetrize_sum(ts, w) / 8.0
+
+
 def _apply_class_transform(ts: TupleSet, block: torch.Tensor, maps,
                            feat0: int, g: int) -> torch.Tensor:
     """T_s restricted to one size class: ``block`` is (..., g, size),

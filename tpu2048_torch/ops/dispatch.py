@@ -17,9 +17,12 @@
 "search" reads the small classes' weights rounded to bf16.  The
 train step's table ops live here too: the evaluator that also returns
 its indices (``make_train_evaluator``), the exact re-evaluation of the
-chosen afterstate (``make_mxu_eval_idx``) and the per-class gradient
-blocks (``make_class_grads``, the ``grad_class`` kernel on "pallas").
-The reference's "onehot" mode is a TPU workaround and is not ported.
+chosen afterstate (``make_mxu_eval_idx``), the per-class gradient
+blocks (``make_class_grads``) and the table-level accumulator and
+updater of the learners off the canonical form
+(``make_delta_accumulator``, ``make_updater``), the last three through
+the ``grad_class`` kernel on "pallas".  The reference's "onehot" mode
+is a TPU workaround and is not ported.
 """
 
 from __future__ import annotations
@@ -219,3 +222,97 @@ def make_class_grads(ts: TupleSet, mode: str
         return out
 
     return classes, fn
+
+
+def _flat_updates(idx: torch.Tensor, dw: torch.Tensor, valid: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(flat indices, dw per index, 1 per valid index), each (B * F,)
+    in row-major (b, f) order: the valid rows' updates of ``idx``."""
+    dwv = torch.where(valid, dw, 0.0)
+    upd = dwv[:, None].expand(idx.shape).reshape(-1)
+    contrib = valid[:, None].expand(idx.shape).to(torch.float32).reshape(-1)
+    return idx.reshape(-1).long(), upd, contrib
+
+
+def make_delta_accumulator(ts: TupleSet, mode: str) -> Callable:
+    """Returns acc_fn(weights_like, idx (B, F), dw (B,), valid (B,)) ->
+    pair (2, total) f32: row 0 the per-entry sum of the valid rows' dw,
+    row 1 their hit count (``dsum, hits = pair`` unpacks it).  The
+    table-level optimizers' gradient (temporal coherence off the
+    canonical form, and the "fold" learners).
+
+    "gather": two ``index_add_`` into a zeroed pair.  "pallas": one
+    ``grad_class`` pair per 16^2..16^4 class, copied into its columns,
+    and the ``index_add_`` pair over the larger classes' columns only.
+    Both add each entry's terms in row order on the CPU, so there they
+    agree bit for bit."""
+    resolve_mode(mode, torch.device("cpu"))
+    classes = oh.build_table_classes(ts)
+
+    def acc(weights: torch.Tensor, idx: torch.Tensor, dw: torch.Tensor,
+            valid: torch.Tensor) -> torch.Tensor:
+        pair = torch.zeros((2,) + weights.shape, dtype=torch.float32,
+                           device=weights.device)
+        if not uses_kernels(mode, weights.device):
+            flat, upd, contrib = _flat_updates(idx, dw, valid)
+            pair[0].index_add_(0, flat, upd)
+            pair[1].index_add_(0, flat, contrib)
+            return pair
+        for c in classes.matmul:
+            hi, lo = oh._hi_lo(ts, idx, c)
+            size = c.g * c.h * c.l
+            pair[:, c.start: c.start + size] = kernels.grad_class(
+                hi, lo, dw, valid, c.h, c.l).view(2, size)
+        if len(classes.gather_feats):
+            gidx = idx[:, _gather_feats(ts.n, idx.device)]
+            flat, upd, contrib = _flat_updates(gidx, dw, valid)
+            pair[0].index_add_(0, flat, upd)
+            pair[1].index_add_(0, flat, contrib)
+        return pair
+
+    return acc
+
+
+def make_updater(ts: TupleSet, mode: str, mean: bool) -> Callable:
+    """Returns update_fn(weights, idx (B, F), dw (B,), valid (B,)) ->
+    weights, updated IN PLACE.
+
+    ``idx`` holds global flat-table indices, ``dw`` the per-row update
+    already scaled by alpha / num_feat, and ``valid`` masks rows out.
+    A scatter-add, with each entry's updates divided by its hit count
+    this step when ``mean`` (``AgentConfig.update_mode="mean"``).
+
+    "gather": one ``index_add_`` of the rows' (divided) updates.
+    "pallas": per 16^2..16^4 class one ``grad_class`` pair, whose dsum
+    (over hits under ``mean``) is added to the class block; the larger
+    classes as "gather", their hits counted over their own columns.
+    Under ``mean`` the two paths round differently, as in the
+    reference: "gather" divides each update, "pallas" each sum."""
+    resolve_mode(mode, torch.device("cpu"))
+    classes = oh.build_table_classes(ts)
+
+    def scatter(weights, idx, dw, valid):
+        flat, upd, contrib = _flat_updates(idx, dw, valid)
+        if mean:
+            hits = torch.zeros_like(weights).index_add_(0, flat, contrib)
+            upd = upd / hits[flat].clamp(min=1.0)
+        weights.index_add_(0, flat, upd)
+
+    def update(weights: torch.Tensor, idx: torch.Tensor, dw: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+        if not uses_kernels(mode, weights.device):
+            scatter(weights, idx, dw, valid)
+            return weights
+        for c in classes.matmul:
+            hi, lo = oh._hi_lo(ts, idx, c)
+            dsum, hits = kernels.grad_class(hi, lo, dw, valid, c.h, c.l)
+            if mean:
+                dsum = dsum / hits.clamp(min=1.0)
+            size = c.g * c.h * c.l
+            weights[c.start: c.start + size] += dsum.reshape(size)
+        if len(classes.gather_feats):
+            scatter(weights, idx[:, _gather_feats(ts.n, idx.device)], dw,
+                    valid)
+        return weights
+
+    return update

@@ -132,10 +132,13 @@ def load_agent_dense(
 def td_state_from_numpy(state, device):
     """The reference's ``TDState`` (any arrays ``np.asarray`` takes,
     e.g. a JAX state) as the port's ``agent.td.TDState`` on
-    ``device``.  Its RNG key has no torch twin and is left out: the
-    port draws from a draw source.  The recorder's logs gain the
-    port's zeroed spill column."""
+    ``device``, of any learner setting: the engine state of either
+    engine (chosen by its fields), ``prev_idx`` of any width, and the
+    (0,) TC placeholders of "sgd" as they are.  Its RNG key has no
+    torch twin and is left out: the port draws from a draw source.
+    The recorder's logs gain the port's zeroed spill column."""
     from ..agent import td
+    from ..engine.core import EnvState
     from ..engine.fast import EnvStateC
 
     def t(x):
@@ -146,11 +149,12 @@ def td_state_from_numpy(state, device):
         return t(np.concatenate([x, np.zeros_like(x[:, :1])], axis=1))
 
     rec = state.recorder
+    env_cls = EnvStateC if hasattr(state.env, "codes") else EnvState
     return td.TDState(
         weights=t(state.weights), opt_e=t(state.opt_e),
         opt_a=t(state.opt_a), alpha=t(state.alpha),
         next_decay=t(state.next_decay), top_tile=t(state.top_tile),
-        env=EnvStateC(*(t(x) for x in state.env)),
+        env=env_cls(*(t(x) for x in state.env)),
         prev_idx=t(state.prev_idx), prev_value=t(state.prev_value),
         prev_valid=t(state.prev_valid),
         metrics=td.Metrics(*(t(x) for x in state.metrics)),

@@ -8,7 +8,10 @@ K-step train segment over N lockstep envs; the host reads the
 device-resident metrics between segments.
 
 A resume may change the table's representation (canonical-orbit vs
-dense): the weights and every extra of their shape are converted.
+dense): the weights and every extra of their shape are converted.  It
+may change the device type too: the saved generator state continues
+only on a generator of its own type (CPU or CUDA), and otherwise the
+stream starts afresh from ``tcfg.seed``, as the log says.
 
 Not ported yet: a device mesh (``mesh=``, ROADMAP.md Queue 1 item 5)
 and a profiler trace (``trace_dir=``, item 6).
@@ -39,8 +42,26 @@ from . import card_device
 
 TILE_NAMES = [1 << e for e in range(10, 17)]  # 1024 .. 65536
 # the generator's state in a checkpoint's extras (the reference keeps
-# its threefry key under "rng_key", which has no torch twin)
+# its threefry key under "rng_key", which has no torch twin), and the
+# device type of the generator that made it: a state continues only on
+# a generator of the same type
 RNG_EXTRA = "torch_rng_state"
+RNG_DEVICE_EXTRA = "torch_rng_device"
+# the state sizes of the two generator types, for checkpoints saved
+# without the device tag: (seed, offset) on CUDA, Mersenne Twister on
+# the CPU
+_RNG_STATE_BYTES = {16: "cuda", 5056: "cpu"}
+
+
+def rng_state_device(extras: Dict[str, Any]) -> Optional[str]:
+    """The device type ("cpu" or "cuda") of the generator whose state a
+    checkpoint's extras hold, or None without a state (or one of no
+    known size)."""
+    if RNG_EXTRA not in extras:
+        return None
+    if RNG_DEVICE_EXTRA in extras:
+        return str(np.asarray(extras[RNG_DEVICE_EXTRA]))
+    return _RNG_STATE_BYTES.get(int(np.asarray(extras[RNG_EXTRA]).size))
 
 
 def _board_str(board: np.ndarray, score: int) -> str:
@@ -140,10 +161,19 @@ class Trainer:
                                                   np.float32)).to(dev),
                 opt_a=torch.from_numpy(np.asarray(extras["opt_a"],
                                                   np.float32)).to(dev))
-        if RNG_EXTRA in extras:
+        saved_on = rng_state_device(extras)
+        if saved_on == dev.type:
             # continue the saved stream; env boards restart fresh
             self.draws.generator.set_state(
                 torch.from_numpy(np.asarray(extras[RNG_EXTRA], np.uint8)))
+        elif RNG_EXTRA in extras:
+            # another device type's generator state does not fit this
+            # one: the stream starts afresh, as the reference's does
+            # from a checkpoint without "rng_key"
+            self.log.add(f"the saved generator state is from "
+                         f"{saved_on or 'an unknown device type'}, not "
+                         f"{dev.type}: a fresh stream from seed "
+                         f"{self.tcfg.seed}")
 
         def scalar(v, dtype):
             return torch.tensor(v, dtype=dtype, device=dev)
@@ -267,12 +297,13 @@ class Trainer:
 
     def save(self) -> None:
         """The agent in the reference's checkpoint format: weights, the
-        TC accumulators, and the generator's state under its own key
-        (no ``rng_key``)."""
+        TC accumulators, and the generator's state and device type
+        under keys of their own (no ``rng_key``)."""
         if self.store is None:
             return
         st = self.state
-        extras = {RNG_EXTRA: _np(self.draws.generator.get_state())}
+        extras = {RNG_EXTRA: _np(self.draws.generator.get_state()),
+                  RNG_DEVICE_EXTRA: np.asarray(self.device.type)}
         if self.acfg.optimizer == "tc":
             extras["opt_e"] = _np(st.opt_e)
             extras["opt_a"] = _np(st.opt_a)
