@@ -87,11 +87,45 @@ Phases, one line of output each (the kernel phases one per check):
      ``grad_class`` once, ``fold_class`` never; the weights finite,
      the best game replays; the checkpoint resumes on the card (its
      generator's stream continued) and on the CPU (a fresh stream,
-     logged); env-steps/s and the first and last ma-100.
+     logged); env-steps/s and the first and last ma-100;
+ 12. flagship: at n=6 (95.7 M entries) and n=7 (206.6 M) one train
+     step of 8192 envs on the card against the CPU, checked as in phase
+     10; then ``Trainer.run`` of ``AgentConfig(n=6)`` at the shipped
+     ``TrainConfig()`` width (8192 envs, all recorded, K=64) for 8
+     segments: every kernel launched on every step, the ma-100 rises,
+     the best game replays, the checkpoint loads and plays 256 games;
+     and 2 segments at n=7; env-steps/s, the card's peak allocated
+     memory and the launches per step of each;
+ 13. mesh: ``distributed.initialize`` with a coordinator on localhost
+     (NCCL, one rank) and ``Trainer(mesh=global_mesh(MeshConfig(1, 1)))``.
+     One n=5 step of 8192 envs through the mesh on the card against
+     the unmeshed CPU step, checked as in phase 10; one segment of the
+     defaults at full width through the mesh and one without it, from
+     one seed: launches per step, collectives per step and their bytes
+     (counted by ``Mesh``, held against the step's shapes), env-steps/s
+     of both as a reading, and how many games differ after the segment
+     between the two and between two unmeshed runs (the card's atomics
+     add in no fixed order and temporal coherence amplifies the
+     difference, so whole runs are not held bitwise: steps are);
+ 14. fixed_order: ``scatter_add_ordered``, the sparse apply of the mesh
+     path, twice on the card from one non-dyadic, heavily colliding
+     list: bitwise the same table, and within the summation-order bound
+     of ``index_add_``; and one mesh step twice from one mid-training
+     state: the gather classes' entries of the weights and both TC sums
+     bitwise the same (replicas that apply one gathered list stay
+     equal);
+ 15. two_ranks: two gloo ranks on this machine's CPU, started by this
+     script (one card cannot hold two NCCL ranks), train one n=5
+     segment of 64 envs; boards, scores, odometers, rings, logs and the
+     best game equal the one-rank CPU run's bitwise, the tables within
+     2^-17, and the two replicas are bitwise equal; with two or more
+     cards the same on two NCCL ranks against the one-card run's tables
+     (with one card the line says that this was not run).
 
-Then a JSON line of the kernels of the four paths (name, route,
+Then a JSON line of the kernels of the paths (name, route,
 source, the TPU kernel it replaces, its launches in the serve, train,
-search and train_variant runs, its largest error against the plain
+search, train_variant, flagship, n7 and mesh runs, its largest error
+against the plain
 version, its, the plain version's and the library call's time in ms,
 and its bound:
 the bytes it must move, each input read once and each output written
@@ -99,11 +133,16 @@ once, over 3.35 TB/s; every timed shape under ``instances``), and last
 ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card the script
 exits 1 before any phase.  It imports nothing of jax or ``tpu2048``.
+
+``python3 chip_smoke.py --rank <rendezvous> <ranks> <rank> <device>
+<out>`` is one rank of phase 15, started by the script itself.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -118,6 +157,10 @@ SERVE_B = 4 * SERVE_GAMES
 TRAIN_B = 8192  # envs of the shipped TrainConfig
 TRAIN_SEGMENTS = 12
 VARIANT_SEGMENTS = 6
+FLAGSHIP_SEGMENTS = 8  # n=6 at the shipped width
+N7_SEGMENTS = 2
+RANKS_ENVS = 64  # phase 15's width: small enough that no argmax flips
+RANKS_TIMEOUT = 300  # seconds for phase 15's ranks, then they are killed
 # the learner settings off the defaults (phase 10), at n=5 through
 # table_ops="pallas"; "sum" at a small alpha, where 8192 envs' summed
 # updates stay small
@@ -667,7 +710,8 @@ def _order_slack(acfg, ts, before, after) -> torch.Tensor:
     The D4 fold of "fold" and of the canonical class blocks folds the
     bound with the sums."""
     from tpu2048_torch.features.canonical import is_canonical
-    from tpu2048_torch.features.symmetry import symmetrize_sum
+    from tpu2048_torch.features.symmetry import (symmetrize_class_sum,
+                                                 symmetrize_sum)
     from tpu2048_torch.ops import onehot as oh
 
     done = ~after.prev_valid
@@ -693,10 +737,14 @@ def _order_slack(acfg, ts, before, after) -> torch.Tensor:
     sgd_sum = acfg.optimizer == "sgd" and acfg.update_mode == "sum"
     pair = mass_hits(before.prev_idx, dw)
     if is_canonical(acfg):
-        end = max(c.start + c.g * c.h * c.l
-                  for c in oh.build_table_classes(ts).matmul)
+        classes = oh.build_table_classes(ts).matmul
+        end = max(c.start + c.g * c.h * c.l for c in classes)
         pair[:, end:] = 0.0  # the gather classes learn at their crosses
-        pair = symmetrize_sum(ts, pair)
+        for c in classes:  # the class-local fold, as the step's
+            blk = slice(c.start, c.start + c.g * c.h * c.l)
+            pair[:, blk] = symmetrize_class_sum(
+                ts, c.feat0, c.g, pair[:, blk].reshape(2, c.g, c.h * c.l)
+            ).reshape(2, -1)
         slack = pair[0] * (pair[1] if sgd_sum else 1.0)
         if before.prev_cidx.shape[1]:
             per = dw[:, None].expand(before.prev_cidx.shape)
@@ -761,9 +809,11 @@ def _launch_counts() -> dict:
         kernels.eval_class, kernels.grad_class, kernels.fold_class)}
 
 
-def _card_step_against_cpu(acfg, tcfg, segment: bool = False) -> tuple:
+def _card_step_against_cpu(acfg, tcfg, segment: bool = False,
+                           mesh=None) -> tuple:
     """One train step (or one segment) of ``acfg`` through the kernels on
-    the card and through their plain versions on the CPU, from one
+    the card (under ``mesh``, if given: its collectives too) and through
+    their plain versions, unmeshed, on the CPU, from one
     state with dyadic weights and the same numpy draws: after two warm
     steps on the card, or for a segment from a fresh state, whose first
     step updates nothing, so that every value the actor reads is exact
@@ -784,7 +834,8 @@ def _card_step_against_cpu(acfg, tcfg, segment: bool = False) -> tuple:
                                                                    2)))
     make = td.make_train_segment if segment else td.make_train_step
     before = _launch_counts()
-    card = make(ts, acfg, tcfg, NumpyDraws(3, "cuda"))(_to(st, "cuda"))
+    card = make(ts, acfg, tcfg, NumpyDraws(3, "cuda"), mesh=mesh)(
+        _to(st, "cuda"))
     torch.cuda.synchronize()
     launches = {k: v - before[k] for k, v in _launch_counts().items()}
     if segment:
@@ -1121,6 +1172,462 @@ def phase_search() -> tuple:
     return launches["eval_class"], check
 
 
+def _reset_launches() -> None:
+    from tpu2048_torch.ops import kernels
+
+    for k in (kernels.eval_class, kernels.grad_class, kernels.fold_class):
+        k.launches = 0
+
+
+def _quiet():
+    from tpu2048_torch.obs.logging import Logger
+
+    return Logger(console=False)
+
+
+def _default_step_launches(steps: int) -> dict:
+    """The shipped learner's launches in ``steps`` steps: the bf16
+    selection and the exact bootstrap, one class gradient, one fold."""
+    return {"eval_class": 2 * steps, "grad_class": steps, "fold_class": steps}
+
+
+def phase_big_step(n: int) -> None:
+    """Phase 12's step check: phase 10's, at n=6 or n=7."""
+    from tpu2048_torch.config import AgentConfig, TrainConfig
+    from tpu2048_torch.features.ntuple import get_tuple_set
+
+    acfg = AgentConfig(n=n, table_ops="pallas")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    card, plain, slack, launches = _card_step_against_cpu(
+        acfg, TrainConfig(num_envs=TRAIN_B))
+    errs = _hold_states(card, plain, f"n={n} train step", slack)
+    if launches != _default_step_launches(1):
+        raise AssertionError(f"n={n} step launched {launches}")
+    _line("flagship_step_check", n=n, envs=TRAIN_B,
+          weights=int(get_tuple_set(n).total), integers="bitwise",
+          max_abs_err=errs, tolerance="2^-17 * max|table| + the entry's "
+          "summation-order bound", launches=launches,
+          gather_features=int(card.prev_cidx.shape[1]),
+          peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+          seconds=time.perf_counter() - t0)
+
+
+def phase_flagship(n: int, segments: int, name: str, save: bool) -> dict:
+    """Phase 12's run: ``Trainer.run`` of ``AgentConfig(n=n)`` at the
+    shipped ``TrainConfig()`` width for ``segments`` segments; with
+    ``save`` the best game is replayed and the checkpoint loaded and
+    played.  Returns the kernels' launches of the run."""
+    from tpu2048_torch.config import AgentConfig, TrainConfig
+    from tpu2048_torch.features.ntuple import get_tuple_set
+    from tpu2048_torch.store.artifacts import LocalStore
+    from tpu2048_torch.store.checkpoint import load_agent, load_agent_dense
+    from tpu2048_torch.train.loop import Trainer
+    from tpu2048_torch.train.trial import trial
+
+    acfg = AgentConfig(n=n)  # canonical form, TC, bf16 actor
+    shipped = TrainConfig()
+    if (shipped.num_envs, shipped.steps_per_call, shipped.record_envs) != (
+            TRAIN_B, 64, -1):
+        raise AssertionError("the shipped TrainConfig changed its width")
+    tcfg = TrainConfig(episodes=10**9, checkpoint_every=10**9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    played = None
+    with tempfile.TemporaryDirectory() as root:
+        store = LocalStore(root) if save else None
+        tr = Trainer(name, acfg, tcfg, store=store, logger=_quiet(),
+                     device="cuda")
+        _reset_launches()
+        out = tr.run(job=_StopAfter(segments))
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        steps = segments * tcfg.steps_per_call
+        if launches != _default_step_launches(steps):
+            raise AssertionError(f"n={n} run launched {launches}, expected "
+                                 "every kernel on every step")
+        st = tr.state
+        if not bool(torch.isfinite(st.weights).all()):
+            raise AssertionError(f"n={n}: non-finite weights after training")
+        if int(st.env.odometer.max()) > steps or out["episodes"] <= 0:
+            raise AssertionError(f"n={n}: the run did not step as asked")
+        peak = torch.cuda.max_memory_allocated()
+        hist = out["train_history"]
+        if save:
+            if len(hist) < 2 or not hist[-1] > hist[0]:
+                raise AssertionError(f"n={n}: the ma-100 did not rise: {hist}")
+            _replays(store, name, out["top_score"])
+            acfg2, w_np, meta = load_agent(store, name)
+            if (acfg2 != acfg or w_np.shape != st.weights.shape
+                    or not np.array_equal(meta["extras"]["opt_a"],
+                                          st.opt_a.cpu().numpy())):
+                raise AssertionError(f"n={n}: the checkpoint does not load "
+                                     "as saved")
+            del w_np, meta
+            _, w, _ = load_agent_dense(store, name, device="cuda")
+            games = trial(get_tuple_set(n), w, num=256, seed=1)
+            if games.odometers.min() <= 0:
+                raise AssertionError(f"n={n}: the trained agent did not play")
+            played = float(games.scores.mean())
+            del w
+    timer = tr.timer
+    seg_s = (timer.totals["train_segment"] + timer.totals["metrics_read"]
+             ) / segments
+    _line("flagship", n=n, weights=int(st.weights.numel()), envs=TRAIN_B,
+          steps_per_call=tcfg.steps_per_call, record_envs="all",
+          segments=segments, episodes=out["episodes"],
+          top_score=out["top_score"], best_game_replays=save or None,
+          env_steps_per_s=out["env_steps_per_sec"],
+          segment_env_steps_per_s=TRAIN_B * tcfg.steps_per_call / seg_s,
+          wall_per_segment_s=seg_s, ma100_first=hist[0] if hist else None,
+          ma100_last=hist[-1] if hist else None, ma100_points=len(hist),
+          launches=launches,
+          launches_per_step={k: v / steps for k, v in launches.items()},
+          peak_allocated_bytes=peak, trial_avg_score=played,
+          timer=timer.report().splitlines())
+    del tr, st
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _games_differing(a, b) -> int:
+    """Envs whose boards or scores differ between two train states."""
+    return int(((a.env.codes != b.env.codes).any(dim=1)
+                | (a.env.score != b.env.score)).sum())
+
+
+def _step_collectives(ts, tcfg, world: int) -> dict:
+    """The collectives of one step of the shipped learner under a mesh,
+    and their bytes as ``Mesh`` counts them (what each hands back to a
+    rank), from the step's shapes: one all-reduce per 16^2..16^4 class
+    pair, one all-gather of the gather classes' rows (an index and an
+    update per feature, and the row's mask), one of the episode metrics
+    (done, score, top tile); per segment one more all-gather, of the
+    ranks' best-game candidates."""
+    from tpu2048_torch.features.canonical import _gather_feat_ids
+    from tpu2048_torch.ops import onehot as oh
+
+    classes = oh.build_table_classes(ts).matmul
+    k = len(_gather_feat_ids(ts.n))
+    pair = sum(2 * c.g * c.h * c.l * 4 for c in classes)
+    rows = tcfg.num_envs * (2 * k + 1) * 4
+    metrics = tcfg.num_envs * 3 * 4
+    return {"all_reduce": len(classes), "all_gather": 2,
+            "bytes": pair + rows + metrics,
+            "segment_all_gather": 1,
+            "segment_bytes": world * (12 + 16 + 2 * tcfg.max_record_steps)}
+
+
+def phase_mesh() -> tuple:
+    """Phase 13.  Returns (the mesh run's launches, the mesh, the mesh
+    trainer's state), the process group left up for phase 14."""
+    from tpu2048_torch.config import AgentConfig, MeshConfig, TrainConfig
+    from tpu2048_torch.features.ntuple import get_tuple_set
+    from tpu2048_torch.parallel import distributed
+    from tpu2048_torch.train.loop import Trainer
+
+    coordinator = f"localhost:{_free_port()}"
+    if not distributed.initialize(coordinator, num_processes=1, process_id=0):
+        raise AssertionError("distributed.initialize returned False")
+    backend = torch.distributed.get_backend()
+    mesh = distributed.global_mesh(MeshConfig(data=1, model=1))
+    if backend != "nccl" or mesh.device.type != "cuda" or mesh.group is None:
+        raise AssertionError(f"the mesh is not on NCCL: {backend}, "
+                             f"{mesh.device}")
+
+    # one step through the mesh on the card against the unmeshed CPU step
+    acfg = AgentConfig(table_ops="pallas")
+    t0 = time.perf_counter()
+    card, plain, slack, launches = _card_step_against_cpu(
+        acfg, TrainConfig(num_envs=TRAIN_B), mesh=mesh)
+    errs = _hold_states(card, plain, "mesh train step", slack)
+    if launches != _default_step_launches(1):
+        raise AssertionError(f"the mesh step launched {launches}")
+    _line("mesh_step_check", backend=backend, world=1, n=acfg.n,
+          envs=TRAIN_B, integers="bitwise", max_abs_err=errs,
+          tolerance="2^-17 * max|table| + the entry's summation-order bound",
+          launches=launches, collectives=dict(mesh.counts),
+          seconds=time.perf_counter() - t0)
+
+    # one segment of the defaults through the mesh, and without it
+    acfg = AgentConfig()
+    tcfg = TrainConfig(episodes=10**9, checkpoint_every=10**9)
+    ts = get_tuple_set(acfg.n)
+    runs = {}
+    for what in ("mesh", "plain", "plain_again"):
+        tr = Trainer(what, acfg, tcfg, logger=_quiet(),
+                     mesh=mesh if what == "mesh" else None, device="cuda")
+        tr.run(job=_StopAfter(1))  # warm: allocator, NCCL, clocks
+        first = tr.state.env._replace(codes=tr.state.env.codes.clone())
+        _reset_launches()
+        mesh.counts.update(dict.fromkeys(mesh.counts, 0))
+        out = tr.run(job=_StopAfter(1))
+        torch.cuda.synchronize()
+        if _launch_counts() != _default_step_launches(tcfg.steps_per_call):
+            raise AssertionError(f"{what}: launched {_launch_counts()}")
+        if not bool(torch.isfinite(tr.state.weights).all()):
+            raise AssertionError(f"{what}: non-finite weights")
+        runs[what] = (tr.state, out["env_steps_per_sec"], _launch_counts(),
+                      dict(mesh.counts), tr.state._replace(env=first))
+    want = _step_collectives(ts, tcfg, world=1)
+    k = tcfg.steps_per_call
+    counted = runs["mesh"][3]
+    expected = {"all_reduce": k * want["all_reduce"],
+                "all_gather": k * want["all_gather"]
+                + want["segment_all_gather"],
+                "bytes": k * want["bytes"] + want["segment_bytes"]}
+    if counted != expected:
+        raise AssertionError(f"the mesh segment ran {counted}, expected "
+                             f"{expected}")
+    if any(runs[w][3] != dict.fromkeys(counted, 0)
+           for w in ("plain", "plain_again")):
+        raise AssertionError("an unmeshed run ran a collective")
+    _line("mesh", backend=backend, world=1, coordinator="localhost",
+          n=acfg.n, envs=TRAIN_B, steps_per_call=k, segments_timed=1,
+          launches=runs["mesh"][2],
+          launches_per_step={n_: v / k for n_, v in runs["mesh"][2].items()},
+          collectives=counted,
+          collectives_per_step={"all_reduce": want["all_reduce"],
+                                "all_gather": want["all_gather"],
+                                "bytes": want["bytes"]},
+          collectives_per_segment_end={
+              "all_gather": want["segment_all_gather"],
+              "bytes": want["segment_bytes"]},
+          mesh_env_steps_per_s=runs["mesh"][1],
+          plain_env_steps_per_s=runs["plain"][1],
+          plain_again_env_steps_per_s=runs["plain_again"][1],
+          reading="one run each: a reading, not a comparison",
+          games_differing_after_steps=[k, 2 * k],
+          games_differing_mesh_vs_plain=[
+              _games_differing(runs["mesh"][i], runs["plain"][i])
+              for i in (4, 0)],
+          games_differing_plain_vs_plain=[
+              _games_differing(runs["plain"][i], runs["plain_again"][i])
+              for i in (4, 0)])
+    return runs["mesh"][2], mesh, runs["mesh"][0]
+
+
+def phase_fixed_order(mesh, state) -> None:
+    """Phase 14: the mesh path's sparse apply is bitwise repeatable on
+    the card, alone and inside a mesh step from ``state`` (the phase-13
+    mesh trainer's, mid-training)."""
+    from tpu2048_torch.agent import td
+    from tpu2048_torch.config import AgentConfig, TrainConfig
+    from tpu2048_torch.draws import NumpyDraws
+    from tpu2048_torch.features.ntuple import get_tuple_set
+    from tpu2048_torch.ops import onehot as oh
+    from tpu2048_torch.ops.dispatch import scatter_add_ordered
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14)
+    size, m = 1 << 20, 1 << 18
+    # three quarters of the list on 64 entries, the rest anywhere
+    hot = rng.integers(0, size, 64)
+    flat = np.where(rng.random(m) < 0.75, hot[rng.integers(0, 64, m)],
+                    rng.integers(0, size, m))
+    flat_t = torch.from_numpy(flat).to(dev)
+    upd = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(dev)
+    base = torch.from_numpy(rng.standard_normal(size).astype(np.float32)
+                            ).to(dev)
+    tables = []
+    for _ in range(2):
+        t = base.clone()
+        scatter_add_ordered(t, flat_t, upd)
+        tables.append(t)
+    torch.cuda.synchronize()
+    if not torch.equal(tables[0], tables[1]):
+        raise AssertionError("scatter_add_ordered is not bitwise repeatable")
+    atomics = [base.clone().index_add_(0, flat_t, upd) for _ in range(2)]
+    mass = torch.zeros(size, device=dev).index_add_(0, flat_t, upd.abs())
+    hits = torch.zeros(size, device=dev).index_add_(
+        0, flat_t, torch.ones(m, device=dev))
+    bound = 2.0**-23 * (hits + 1.0) * (mass + base.abs())
+    err = (tables[0] - atomics[0]).abs()
+    if not bool((err <= bound).all()):
+        raise AssertionError("scatter_add_ordered is outside index_add_'s "
+                             "summation-order bound")
+
+    # one mesh step, twice, from one mid-training state
+    acfg, tcfg = AgentConfig(), TrainConfig()
+    ts = get_tuple_set(acfg.n)
+    end = max(c.start + c.g * c.h * c.l
+              for c in oh.build_table_classes(ts).matmul)
+    outs = []
+    for _ in range(2):
+        step = td.make_train_step(ts, acfg, tcfg, NumpyDraws(5, "cuda"),
+                                  mesh=mesh)
+        outs.append(step(_to(state, "cuda"))[0])
+    torch.cuda.synchronize()
+    moved = int((outs[0].weights[end:] != state.weights[end:]).sum())
+    if moved == 0:
+        raise AssertionError("the mesh step moved no gather-class entry")
+    for f in ("weights", "opt_e", "opt_a"):
+        if not torch.equal(getattr(outs[0], f)[end:],
+                           getattr(outs[1], f)[end:]):
+            raise AssertionError(f"two runs of one mesh step differ in the "
+                                 f"gather classes' {f}")
+    collide = torch.unique(state.prev_cidx[state.prev_valid].reshape(-1),
+                           return_counts=True)[1]
+    _line("fixed_order", list=m, entries=size,
+          most_on_one_entry=int(hits.max()), repeatable="bitwise",
+          max_abs_diff_to_index_add=float(err.max()),
+          index_add_repeats=bool(torch.equal(atomics[0], atomics[1])),
+          mesh_step_gather_entries_moved=moved,
+          mesh_step_gather_classes="bitwise over two runs",
+          mesh_step_most_rows_on_one_entry=int(collide.max()),
+          mesh_step_class_block_repeats=bool(torch.equal(
+              outs[0].weights[:end], outs[1].weights[:end])))
+
+
+def _rank_main(rendezvous: str, ranks: int, rank: int, device: str,
+               out: str) -> int:
+    """One rank of phase 15: one n=5 segment of RANKS_ENVS envs on a
+    mesh of ``ranks``; rank 0 writes the global state."""
+    from tpu2048_torch.config import AgentConfig, MeshConfig, TrainConfig
+    from tpu2048_torch.parallel import distributed
+    from tpu2048_torch.parallel import mesh as pmesh
+    from tpu2048_torch.train.loop import Trainer
+
+    if device == "cpu":
+        torch.set_num_threads(2)
+    if not distributed.initialize(rendezvous, ranks, rank, device=device):
+        raise AssertionError("distributed.initialize returned False")
+    mesh = distributed.global_mesh(MeshConfig(data=ranks, model=1))
+    tr = Trainer("ranks", AgentConfig(), _ranks_tcfg(), logger=_quiet(),
+                 mesh=mesh)
+    tr.run(job=_StopAfter(1))
+    counts = dict(mesh.counts)  # the segment's own, before the checks'
+    # every rank's replica of the tables holds the same bits
+    for f in ("weights", "opt_e", "opt_a"):
+        rows = mesh.all_gather(getattr(tr.state, f).view(torch.int32)[None])
+        if not bool((rows == rows[0]).all()):
+            raise AssertionError(f"the ranks' replicas differ in {f}")
+    full = pmesh.host_full_state(tr.state, mesh)
+    if rank == 0:
+        np.savez(out, **_flat(full), collectives=json.dumps(counts))
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+    print(f"RANK_OK {rank}", flush=True)
+    return 0
+
+
+def _ranks_tcfg():
+    from tpu2048_torch.config import TrainConfig
+
+    return TrainConfig(num_envs=RANKS_ENVS, steps_per_call=8, ring_size=64,
+                       max_record_steps=256, episodes=10**9,
+                       checkpoint_every=10**9, seed=15)
+
+
+def _flat(state) -> dict:
+    """A train state as {"env.codes": array, ...}."""
+    out = {}
+    for f, x in zip(state._fields, state):
+        if hasattr(x, "_fields"):
+            out.update({f"{f}.{g}": np.asarray(y.cpu() if isinstance(
+                y, torch.Tensor) else y) for g, y in zip(x._fields, x)})
+        else:
+            out[f] = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+    return out
+
+
+def _run_ranks(ranks: int, device: str) -> dict:
+    """Start ``ranks`` ranks of this script, wait for them (killed at
+    RANKS_TIMEOUT), and return rank 0's global state."""
+    here = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "state.npz")
+        procs = [subprocess.Popen(
+            [sys.executable, here, "--rank", f"file://{tmp}/rendezvous",
+             str(ranks), str(r), device, out],
+            cwd=os.path.dirname(here), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(ranks)]
+        logs = []
+        deadline = time.monotonic() + RANKS_TIMEOUT
+        try:
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0 or f"RANK_OK {r}" not in log:
+                raise AssertionError(f"rank {r} of {ranks} on {device} "
+                                     f"failed:\n{log}")
+        with np.load(out) as z:
+            return dict(z)
+
+
+def _hold_ranks(got: dict, want: dict, what: str, integers: bool) -> float:
+    """The ranks' global state against the one-rank run's: every integer
+    leaf bitwise when ``integers`` (the logs' spill column and the
+    rings' trash slot aside), the tables within 2^-17 of their largest
+    entry.  Returns the tables' largest error."""
+    worst = 0.0
+    for name, b in want.items():
+        a = got[name]
+        if name in ("recorder.moves", "recorder.spawns"):
+            a, b = a[:, :-1], b[:, :-1]
+        if name in ("metrics.score_ring", "metrics.tile_ring"):
+            a, b = a[:-1], b[:-1]
+        if name in ("weights", "opt_e", "opt_a", "prev_value"):
+            err = float(np.abs(a - b).max())
+            worst = max(worst, err)
+            if err > 2.0**-17 * float(np.abs(b).max()):
+                raise AssertionError(f"{what}: {name} differs by {err}")
+        elif integers and not np.array_equal(a, b):
+            raise AssertionError(f"{what}: {name} differs from the one-rank "
+                                 "run's")
+    return worst
+
+
+def phase_two_ranks() -> None:
+    """Phase 15: two ranks against one."""
+    from tpu2048_torch.config import AgentConfig
+    from tpu2048_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    got = _run_ranks(2, "cpu")
+    alone = Trainer("alone", AgentConfig(), _ranks_tcfg(), logger=_quiet(),
+                    device="cpu")
+    alone.run(job=_StopAfter(1))
+    want = _flat(alone.state)
+    worst = _hold_ranks(got, want, "two gloo ranks", integers=True)
+    _line("two_ranks", backend="gloo", ranks=2,
+          where="this machine's CPU: one card cannot hold two NCCL ranks",
+          n=5, envs=RANKS_ENVS, steps=8, integers="bitwise against the "
+          "one-rank CPU run", replicas="bitwise equal",
+          tables_max_abs_err=worst, tolerance="2^-17 * max|table|",
+          collectives=json.loads(str(got["collectives"])),
+          seconds=time.perf_counter() - t0)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        t0 = time.perf_counter()
+        got = _run_ranks(2, "cuda")
+        alone = Trainer("alone", AgentConfig(), _ranks_tcfg(),
+                        logger=_quiet(), device="cuda")
+        alone.run(job=_StopAfter(1))
+        # the card adds colliding terms in no fixed order: tables only
+        worst = _hold_ranks(got, _flat(alone.state), "two NCCL ranks",
+                            integers=False)
+        _line("two_ranks", backend="nccl", ranks=2, cards=cards,
+              replicas="bitwise equal", tables_max_abs_err=worst,
+              tolerance="2^-17 * max|table|",
+              seconds=time.perf_counter() - t0)
+    else:
+        _line("two_ranks", backend="nccl", ranks=2, run=False,
+              why=f"{cards} card here: NCCL takes one rank per device")
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -1135,6 +1642,15 @@ def main() -> int:
     kstats["eval_class"]["instances"].append(search_check)
     phase_train_variants(kstats["grad_class"])
     variant = phase_train_variant("smoke_sgd")
+    phase_big_step(6)
+    flagship = phase_flagship(6, FLAGSHIP_SEGMENTS, "smoke_n6", save=True)
+    phase_big_step(7)
+    n7 = phase_flagship(7, N7_SEGMENTS, "smoke_n7", save=False)
+    meshed, mesh, mesh_state = phase_mesh()
+    phase_fixed_order(mesh, mesh_state)
+    del mesh_state
+    torch.distributed.destroy_process_group()
+    phase_two_ranks()
     loaded = sorted(m for m in sys.modules if m == "jax" or m == "tpu2048"
                     or m.startswith(("jax.", "tpu2048.")))
     if loaded:
@@ -1149,12 +1665,14 @@ def main() -> int:
         "route": "cuda",
         "source": f"tpu2048_torch/ops/csrc/{k}.cu",
         "replaces": replaces[k],
-        "launches": train[k] + variant[k] + (serve + search
-                                             if k == "eval_class" else 0),
+        "launches": train[k] + variant[k] + flagship[k] + n7[k] + meshed[k]
+        + (serve + search if k == "eval_class" else 0),
         "launches_by_path": {"serve": serve if k == "eval_class" else 0,
                              "train": train[k],
                              "search": search if k == "eval_class" else 0,
-                             "train_variant": variant[k]},
+                             "train_variant": variant[k],
+                             "flagship": flagship[k], "n7": n7[k],
+                             "mesh": meshed[k]},
         "bound_by": "bytes",
         # the same two readings under this round's names
         "bound_us": 1e3 * kstats[k]["bound_ms"],
@@ -1168,4 +1686,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(_rank_main(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                            sys.argv[5], sys.argv[6]))
     sys.exit(main())

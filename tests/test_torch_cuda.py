@@ -389,3 +389,95 @@ def test_checkpoint_resumes_on_the_other_device_type():
                            tr.draws.generator.get_state())
         again.run(job=_StopAfter(1))  # and saves from the other type
         assert bool(torch.isfinite(again.state.weights).all())
+
+
+@pytest.fixture
+def nccl_mesh():
+    """A mesh of this process alone through NCCL, from an explicit
+    coordinator on localhost; the process group is taken down after
+    the test."""
+    import socket
+
+    needs_card()
+    from tpu2048_torch.config import MeshConfig
+    from tpu2048_torch.parallel import distributed
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert distributed.initialize(f"localhost:{port}", 1, 0)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        yield distributed.global_mesh(MeshConfig(data=1, model=1))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_world_one_nccl_trainer_equals_the_unmeshed_one(nccl_mesh):
+    """One step of 1024 envs through the mesh on the card equals the
+    unmeshed CPU step (integers bitwise, tables within 2^-17 of the
+    largest entry plus each entry's summation-order bound), and one
+    segment of ``Trainer(mesh=...)`` at 64 envs equals the unmeshed
+    trainer's from the same seed: integers bitwise, tables within
+    2^-17 (at full width the card's atomics and temporal coherence let
+    whole runs part, so runs are held at a small width and steps at
+    any)."""
+    from chip_smoke import _card_step_against_cpu, _flat, _hold_states
+    from tpu2048_torch.obs.logging import Logger
+    from tpu2048_torch.train.loop import Trainer
+
+    mesh = nccl_mesh
+    tcfg = TrainConfig(num_envs=1024, ring_size=256, max_record_steps=256)
+    card, plain, slack, launches = _card_step_against_cpu(
+        AgentConfig(table_ops="pallas"), tcfg, mesh=mesh)
+    _hold_states(card, plain, "mesh step", slack)
+    assert launches == {"eval_class": 2, "grad_class": 1, "fold_class": 1}
+    assert mesh.counts["all_reduce"] == 1 and mesh.counts["all_gather"] == 2
+
+    tcfg = TrainConfig(num_envs=64, steps_per_call=8, ring_size=64,
+                       max_record_steps=256, seed=15)
+    states = []
+    for m in (mesh, None):
+        tr = Trainer("w1", AgentConfig(), tcfg, logger=Logger(console=False),
+                     mesh=m, device="cuda")
+        tr.run(job=_StopAfter(1))
+        states.append(_flat(tr.state))
+    for name, want in states[1].items():
+        got = states[0][name]
+        if name in ("weights", "opt_e", "opt_a", "prev_value"):
+            assert np.abs(got - want).max() <= 2.0**-17 * np.abs(want).max()
+        elif name in ("recorder.moves", "recorder.spawns"):
+            np.testing.assert_array_equal(got[:, :-1], want[:, :-1], name)
+        elif name in ("metrics.score_ring", "metrics.tile_ring"):
+            np.testing.assert_array_equal(got[:-1], want[:-1], name)
+        else:
+            np.testing.assert_array_equal(got, want, name)
+
+
+def test_fixed_order_apply_is_bitwise_repeatable():
+    """``scatter_add_ordered`` (the mesh path's sparse apply) on a
+    non-dyadic, heavily colliding list gives the same bits every time,
+    within ``index_add_``'s summation-order bound of it."""
+    dev = needs_card()
+    from tpu2048_torch.ops.dispatch import scatter_add_ordered
+
+    rng = np.random.default_rng(0)
+    size, m = 1 << 18, 1 << 17
+    flat = torch.from_numpy(np.where(rng.random(m) < 0.75,
+                                     rng.integers(0, 16, m),
+                                     rng.integers(0, size, m))).to(dev)
+    upd = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(dev)
+    base = torch.from_numpy(rng.standard_normal(size).astype(np.float32)
+                            ).to(dev)
+    outs = []
+    for _ in range(3):
+        t = base.clone()
+        scatter_add_ordered(t, flat, upd)
+        outs.append(t)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    atomic = base.clone().index_add_(0, flat, upd)
+    mass = torch.zeros(size, device=dev).index_add_(0, flat, upd.abs())
+    hits = torch.zeros(size, device=dev).index_add_(
+        0, flat, torch.ones(m, device=dev))
+    bound = 2.0**-23 * (hits + 1.0) * (mass + base.abs())
+    assert bool(((outs[0] - atomic).abs() <= bound).all())

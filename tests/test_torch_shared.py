@@ -29,7 +29,7 @@ from tpu2048_torch.store import checkpoint as tckpt
 
 
 @pytest.mark.parametrize("name", ["AgentConfig", "TrainConfig",
-                                  "SearchConfig"])
+                                  "SearchConfig", "MeshConfig"])
 def test_config_fields_defaults_and_dicts(name):
     a, b = getattr(jcfg, name), getattr(tcfg, name)
     fa = [(f.name, f.type, f.default) for f in dataclasses.fields(a)]
@@ -53,11 +53,11 @@ def test_agent_config_from_dict_crosses():
 VERBATIM = [
     (jart, tart, ["ArtifactStore", "_encode", "_decode", "_SerializingStore",
                   "LocalStore", "MemoryStore", "S3Store", "open_store"]),
-    (jcfg, tcfg, ["AgentConfig", "TrainConfig", "SearchConfig", "to_dict",
-                  "agent_config_from_dict"]),
+    (jcfg, tcfg, ["AgentConfig", "TrainConfig", "SearchConfig", "MeshConfig",
+                  "to_dict", "agent_config_from_dict"]),
     (jlog, tlog, ["log_key", "Logger"]),
     (jmet, tmet, ["metrics_key", "MetricsWriter", "train_history"]),
-    (jjobs, tjobs, ["Job"]),
+    (jjobs, tjobs, ["JobRegistry", "Job", "JobManager"]),
     (jprof, tprof, ["Timer"]),
     (jckpt, tckpt, ["agent_key", "weights_key", "game_key", "load_agent",
                     "save_game", "load_game"]),

@@ -184,8 +184,15 @@ def test_trainer_stops_on_cancel():
 @pytest.mark.parametrize("what", ["mesh", "trace_dir"])
 def test_unported_trainer_options_raise(what):
     if what == "mesh":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            Trainer("x", ACFG, TCFG, mesh=object(), device="cpu")
+        # the data axis is ported; the model axis still raises
+        from tpu2048_torch.config import MeshConfig
+        from tpu2048_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(MeshConfig(data=1, model=1), device="cpu")
+        tr = Trainer("x", ACFG, TCFG, logger=_quiet(), mesh=mesh)
+        assert tr.device.type == "cpu" and tr.mesh is mesh
+        with pytest.raises(NotImplementedError, match="Queue 1"):
+            make_mesh(MeshConfig(data=1, model=2), device="cpu")
     else:
         tr = Trainer("x", ACFG, TCFG, logger=_quiet(), device="cpu")
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):

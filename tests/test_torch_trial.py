@@ -140,6 +140,10 @@ def test_port_imports_no_jax():
         import tpu2048_torch.agent.td
         import tpu2048_torch.train.loop
         import tpu2048_torch.search.expectimax
+        import tpu2048_torch.parallel.distributed
+        import tpu2048_torch.parallel.mesh
+        import tpu2048_torch.obs.jobs
+        import torch_graft_entry
         from tpu2048_torch.config import AgentConfig, SearchConfig, TrainConfig
         from tpu2048_torch.obs.logging import Logger
         from tpu2048_torch.store.artifacts import LocalStore
@@ -183,6 +187,17 @@ def test_port_imports_no_jax():
             tr.run(job=Once())
             assert int(tr.state.env.odometer.max()) == 2
             assert tr.state.prev_idx.shape[1] == 8
+            # under a mesh (of this process alone)
+            from tpu2048_torch.parallel import distributed
+            assert distributed.initialize() is False
+            tr = Trainer("m", AgentConfig(n=4),
+                         TrainConfig(num_envs=8, steps_per_call=2),
+                         store=store, logger=Logger(console=False),
+                         mesh=distributed.global_mesh(device="cpu"))
+            tr.run(job=Once())
+            assert int(tr.state.env.odometer.max()) == 2
+        fn, args = torch_graft_entry.entry(device="cpu")
+        assert fn(*args)[0].shape == (1024,)
         assert "jax" not in sys.modules, "the port loaded jax"
         ref = sorted(m for m in sys.modules
                      if m == "tpu2048" or m.startswith("tpu2048."))

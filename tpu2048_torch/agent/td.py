@@ -49,6 +49,21 @@ Forms that differ from the reference, with the same results:
     packed (3, total) scan carry is a TPU layout and is not ported;
   * the recorder's (R, S) logs carry one spill column S, where writes
     of lanes that do not record land (the reference drops them).
+
+Data parallel (``mesh=``, a ``parallel.mesh.Mesh``): each rank steps
+its env range of the global batch and holds the tables whole.  The
+reference's sharded step is its single-device step under GSPMD; here
+the same function is computed by hand.  Every sum over envs that feeds
+a table is made global before it is used: the class gradient pairs
+(and, off the canonical form, the table-sized pair) are all-reduced
+before the fold and the divide by hits; the sparse updates' rows are
+all-gathered in rank order and every rank applies the whole list in
+the list's order; the completed episodes are all-gathered and written
+to the rings in global env order; the best game is chosen among the
+ranks' candidates with the single-device tie-break.  So the replicas
+stay bitwise equal, and the games do not depend on the number of ranks
+until f32 summation order flips an argmax.  Without a mesh no
+collective runs and the step is the single-device step as it was.
 """
 
 from __future__ import annotations
@@ -60,7 +75,7 @@ import numpy as np
 import torch
 
 from ..config import AgentConfig, TrainConfig
-from ..draws import Draws
+from ..draws import Draws, EnvSliceDraws
 from ..engine import core as engine
 from ..engine import fast as engf
 from ..features import ntuple
@@ -214,16 +229,35 @@ def select_greedy(ts: TupleSet, weights: torch.Tensor, boards: torch.Tensor):
     return make_select_greedy(ts)(weights, boards)
 
 
+def _mesh_sizes(tcfg: TrainConfig, mesh) -> tuple:
+    """(envs, recorded envs) of this rank: the global counts without a
+    mesh."""
+    n, r_env = tcfg.num_envs, record_env_count(tcfg)
+    if mesh is None:
+        return n, r_env
+    return mesh.local_envs(n), mesh.record_rows(n, r_env)
+
+
+def _mesh_draws(draws: Draws, mesh) -> Draws:
+    """This rank's env range of the global batch's draws."""
+    if mesh is None:
+        return draws
+    return EnvSliceDraws(draws, mesh.rank, mesh.data)
+
+
 def init_td_state(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
                   draws: Draws, device,
-                  weights: Optional[torch.Tensor] = None) -> TDState:
+                  weights: Optional[torch.Tensor] = None,
+                  mesh=None) -> TDState:
     """A fresh train state on ``device``: U[0, 0.01) weights from
     ``draws.uniform`` unless ``weights`` is given, fresh boards from
     ``draws.new``, zeroed TC accumulators (placeholders under "sgd"),
-    rings and logs."""
+    rings and logs.  Under a ``mesh``: this rank's share of the global
+    batch of ``tcfg.num_envs`` envs, from the global batch's draws."""
     device = torch.device(device)
-    n, s = tcfg.num_envs, tcfg.max_record_steps
-    r_env = record_env_count(tcfg)
+    s = tcfg.max_record_steps
+    n, r_env = _mesh_sizes(tcfg, mesh)
+    draws = _mesh_draws(draws, mesh)
     if weights is None:
         weights = draws.uniform((ts.total,)) * 0.01
     weights = weights.to(device=device, dtype=torch.float32).contiguous()
@@ -306,7 +340,7 @@ def _tc_apply(w: torch.Tensor, e: torch.Tensor, a: torch.Tensor,
 
 
 def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
-                    draws: Draws, staged: bool = True):
+                    draws: Draws, staged: bool = True, mesh=None):
     """The batched TD(0) train step.  Updates the state's tables,
     rings and recorder in place (see the module doc); draws its spawns
     and resets from ``draws``.
@@ -322,11 +356,16 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     ``fold_class``) on the card and plain torch elsewhere; "pallas"
     takes the kernels' wrappers on any device (their plain versions on
     CPU tensors); "search" is "pallas" on the card and "gather"
-    elsewhere; "gather" takes plain torch everywhere."""
+    elsewhere; "gather" takes plain torch everywhere.
+
+    Under a ``mesh`` the state is this rank's share and the step is
+    the global batch's (see the module doc); ``draws`` is the run's
+    source, seeded alike on every rank."""
     _check_settings(acfg)
     num_feat = ts.num_feat
     ring = tcfg.ring_size
-    r_env = record_env_count(tcfg)
+    r_env = _mesh_sizes(tcfg, mesh)[1]
+    draws = _mesh_draws(draws, mesh)
     s_max = tcfg.max_record_steps
     num_sym = _num_sym(acfg)
     ops = acfg.table_ops
@@ -342,7 +381,7 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     elif tc or fold_step:
         accumulate = table_dispatch.make_delta_accumulator(ts, ops)
     else:
-        update = table_dispatch.make_updater(ts, ops, mean=mean)
+        update = table_dispatch.make_updater(ts, ops, mean=mean, mesh=mesh)
     if codes_mode:
         # "bf16": selection in bf16 over 4N rows, the chosen
         # afterstate's value then re-derived exactly from its indices
@@ -369,6 +408,9 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
                             state.prev_valid)
         for c, pair in zip(classes_c.matmul, pairs):
             nsz = c.g * c.h * c.l
+            if mesh is not None:
+                # global sums and hits before the fold and the divide
+                mesh.all_reduce(pair)
             # the gradient pair is the fold's input as it stands
             pair = fold(c, pair.view(2, c.g, c.h * c.l))
             dsum, hits = pair[0].reshape(nsz), pair[1].reshape(nsz)
@@ -381,6 +423,14 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
                 state.weights[blk].add_(dsum / hits.clamp(min=1.0)
                                         if mean else dsum)
 
+    def add(table: torch.Tensor, flat: torch.Tensor, upd: torch.Tensor):
+        """``table[flat] += upd``; in the list's order under a mesh,
+        where every replica must take the same bits."""
+        if mesh is None:
+            table.index_add_(0, flat, upd)
+        else:
+            table_dispatch.scatter_add_ordered(table, flat, upd)
+
     def cross_update(state: TDState, delta: torch.Tensor) -> None:
         """Canonical form, gather classes: one sparse update at the
         canonical-orbit indices, in place.  "sum" scales each hit by
@@ -391,7 +441,11 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
         per = delta[:, None].expand(cidx.shape)
         if not mean:
             per = per * state.prev_cmult.to(torch.float32)
-        valid = state.prev_valid[:, None].expand(cidx.shape)
+        valid = state.prev_valid
+        if mesh is not None:
+            # every rank applies the global batch's list, in its order
+            cidx, per, valid = mesh.all_gather_rows(cidx, per, valid)
+        valid = valid[:, None].expand(cidx.shape)
         per = torch.where(valid, per, 0.0)
         flat = cidx.reshape(-1).long()
         if mean:
@@ -400,14 +454,19 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
             hits_g.index_add_(0, flat, valid.to(torch.float32).reshape(-1))
             per = per / hits_g[cidx.long()].clamp(min=1.0)
         if not tc:
-            state.weights.index_add_(0, flat, per.reshape(-1))
+            add(state.weights, flat, per.reshape(-1))
             return
         # gather E/A before any of the three scatters
         lr_g = _tc_rate(state.opt_e[flat], state.opt_a[flat]).view(cidx.shape)
-        state.weights.index_add_(0, flat,
-                                 (state.alpha * lr_g * per).reshape(-1))
-        state.opt_e.index_add_(0, flat, per.reshape(-1))
-        state.opt_a.index_add_(0, flat, per.abs().reshape(-1))
+        add(state.weights, flat, (state.alpha * lr_g * per).reshape(-1))
+        add(state.opt_e, flat, per.reshape(-1))
+        add(state.opt_a, flat, per.abs().reshape(-1))
+
+    def global_pair(pair: torch.Tensor) -> torch.Tensor:
+        """The table-sized [dsum; hits] pair (or its dsum) summed over
+        the ranks: as heavy as the table, and as the reference's
+        all-reduce under GSPMD off the canonical form."""
+        return pair if mesh is None else mesh.all_reduce(pair)
 
     def table_update(state: TDState, td_err: torch.Tensor) -> None:
         """Off the canonical form: the update over the whole table, at
@@ -417,9 +476,9 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
         valid = state.prev_valid[:, None].expand(n, num_sym).reshape(-1)
         if tc:
             delta = torch.where(state.prev_valid, td_err, 0.0) / float(num_feat)
-            pair = accumulate(state.weights, idx,
-                              delta[:, None].expand(n, num_sym).reshape(-1),
-                              valid)
+            pair = global_pair(accumulate(
+                state.weights, idx,
+                delta[:, None].expand(n, num_sym).reshape(-1), valid))
             if fold_step:
                 pair = symmetrize_sum(ts, pair)
             # the hit mean whatever update_mode says, as the reference
@@ -432,11 +491,11 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
         if not fold_step:
             update(state.weights, idx, dw, valid)
         elif mean:
-            pair = symmetrize_sum(ts, accumulate(state.weights, idx, dw,
-                                                 valid))
+            pair = symmetrize_sum(ts, global_pair(accumulate(
+                state.weights, idx, dw, valid)))
             state.weights.add_(pair[0] / pair[1].clamp(min=1.0))
         else:
-            dsum = accumulate(state.weights, idx, dw, valid)[0]
+            dsum = global_pair(accumulate(state.weights, idx, dw, valid)[0])
             state.weights.add_(symmetrize_sum(ts, dsum))
 
     def train_step(state: TDState):
@@ -541,44 +600,43 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
             rec.moves.index_put_((rows, wslot.long()), mv)
             rec.spawns.index_put_((rows, wslot.long()), sp)
             # the best finished game, from its log row after this write
-            best_i = cand.argmax().view(1)
-            cand_b = cand[best_i][0]
-            take = cand_b > rec.best_score
-            rec = rec._replace(
-                best_moves=torch.where(
-                    take, rec.moves.index_select(0, best_i)[0, :s_max],
-                    rec.best_moves),
-                best_spawns=torch.where(
-                    take, rec.spawns.index_select(0, best_i)[0, :s_max],
-                    rec.best_spawns),
-                best_start=torch.where(
-                    take, rec.starts.index_select(0, best_i)[0],
-                    rec.best_start),
-                best_len=torch.where(
-                    take, state.env.odometer[best_i][0].clamp(max=s_max),
-                    rec.best_len),
-                best_score=torch.where(take, cand_b, rec.best_score),
-            )
+            if r_env:
+                best_i = cand.argmax().view(1)
+                best = _BestGame(
+                    score=cand[best_i][0],
+                    moves=rec.moves.index_select(0, best_i)[0, :s_max],
+                    spawns=rec.spawns.index_select(0, best_i)[0, :s_max],
+                    start=rec.starts.index_select(0, best_i)[0],
+                    length=state.env.odometer[best_i][0].clamp(max=s_max))
+            else:
+                best = _no_best_game(s_max, device)
+            if mesh is not None:
+                best = _global_best(mesh, best, torch.zeros_like(best.score),
+                                    span=1)
+            rec = _take_best(rec, best)
 
         # --- episode-completion metrics -------------------------------
         met = state.metrics
-        n_done = done.sum(dtype=torch.int32)
-        order = done.cumsum(0, dtype=torch.int32) - 1
-        wpos = torch.where(done, (met.ring_pos + order) % ring, ring).long()
-        met.score_ring.index_put_((wpos,), score)
-        met.tile_ring.index_put_((wpos,), tiles)
+        # the rings are replicated and written in global env order
+        done_g, score_g, tiles_g = (done, score, tiles) if mesh is None else \
+            mesh.all_gather_rows(done, score, tiles.to(torch.int32))
+        n_done = done_g.sum(dtype=torch.int32)
+        order = done_g.cumsum(0, dtype=torch.int32) - 1
+        wpos = torch.where(done_g, (met.ring_pos + order) % ring, ring).long()
+        met.score_ring.index_put_((wpos,), score_g)
+        met.tile_ring.index_put_((wpos,), tiles_g)
         metrics = Metrics(
             episodes=met.episodes + n_done,
             score_ring=met.score_ring,
             tile_ring=met.tile_ring,
             ring_pos=met.ring_pos + n_done,
             best_score=torch.maximum(met.best_score,
-                                     torch.where(done, score, 0).max()),
+                                     torch.where(done_g, score_g, 0).max()),
         )
 
         # --- alpha schedule (skipped by the self-annealing TC rule) ---
         alpha, next_decay = state.alpha, state.next_decay
-        mt_done = torch.where(done, tiles, 0).max()
+        mt_done = torch.where(done_g, tiles_g, 0).max()
         top_tile = torch.maximum(state.top_tile, mt_done)
         if not tc:
             # f32 throughout: the Python floats take the tensor's type
@@ -640,8 +698,67 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     return train_step
 
 
+class _BestGame(NamedTuple):
+    """A candidate for the recorder's best game."""
+
+    score: torch.Tensor  # i32 scalar (-1: none)
+    moves: torch.Tensor  # (S,) i8
+    spawns: torch.Tensor  # (S,) i8
+    start: torch.Tensor  # (4, 4) i8
+    length: torch.Tensor  # i32 scalar
+
+
+def _no_best_game(s_max: int, device) -> _BestGame:
+    """The candidate of a rank that records no env."""
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return _BestGame(score=torch.tensor(-1, dtype=torch.int32, device=device),
+                     moves=zeros((s_max,), torch.int8),
+                     spawns=zeros((s_max,), torch.int8),
+                     start=zeros((4, 4), torch.int8),
+                     length=zeros((), torch.int32))
+
+
+def _global_best(mesh, best: _BestGame, order: torch.Tensor,
+                 span: int) -> _BestGame:
+    """The ranks' candidates all-gathered once (one int8 row each:
+    score, ``order`` and length as bytes, start board, moves, spawns)
+    and the winner picked on the device: the largest score, then the
+    largest ``order`` (in [0, span)), then the lowest rank, which is the
+    single-device pick when ``order`` ranks a rank's candidate as the
+    single device's scan would."""
+    i8, i32 = torch.int8, torch.int32
+    s_max = best.moves.shape[0]
+    head = torch.stack([best.score.to(i32), order.to(i32),
+                        best.length.to(i32)])
+    row = torch.cat([head.view(i8), best.start.reshape(16).to(i8),
+                     best.moves, best.spawns])
+    rows = mesh.all_gather(row[None])  # (world, 12 + 16 + 2 S)
+    heads = rows[:, :12].contiguous().view(i32)  # (world, 3)
+    key = heads[:, 0].long() * span + heads[:, 1].long()
+    win = rows[key.argmax()]  # argmax: the first maximum, the lowest rank
+    head = win[:12].contiguous().view(i32)
+    return _BestGame(score=head[0], moves=win[28: 28 + s_max],
+                     spawns=win[28 + s_max:], start=win[12:28].reshape(4, 4),
+                     length=head[2])
+
+
+def _take_best(rec: Recorder, best: _BestGame) -> Recorder:
+    """The recorder with ``best`` as its best game if it beats the one
+    it holds."""
+    take = best.score > rec.best_score
+    return rec._replace(
+        best_moves=torch.where(take, best.moves, rec.best_moves),
+        best_spawns=torch.where(take, best.spawns, rec.best_spawns),
+        best_start=torch.where(take, best.start, rec.best_start),
+        best_len=torch.where(take, best.length, rec.best_len),
+        best_score=torch.where(take, best.score, rec.best_score),
+    )
+
+
 def _merge_staged_recorder(rec: Recorder, starts0: torch.Tensor,
-                           recs: RecStep, s_max: int) -> Recorder:
+                           recs: RecStep, s_max: int, mesh=None) -> Recorder:
     """Fold a segment's stacked (K, R) ``RecStep`` rows into the
     recorder (``tpu2048/agent/td.py::_merge_staged_recorder``).
 
@@ -657,10 +774,21 @@ def _merge_staged_recorder(rec: Recorder, starts0: torch.Tensor,
     that start and finish inside the segment are rebuilt from the
     staged rows.  ``starts0`` is the start boards at segment start.
     Updates the logs in place.
+
+    Under a ``mesh`` the rows are this rank's recorded envs; its
+    candidate meets the other ranks' once (``_global_best``), and the
+    winner is the single device's: the first maximum in global env
+    order among the first completions, an in-segment game (the
+    earliest step, then the lowest env) only when strictly greater.
     """
     mv, sp, wslot, done_k, cand_k, odo_k, sb_k = recs
     k, r = mv.shape
     dev = mv.device
+    if r == 0:  # a rank that records no env still meets the others
+        best = _global_best(mesh, _no_best_game(s_max, dev),
+                            torch.zeros((), dtype=torch.int32, device=dev),
+                            span=k + 1)
+        return _take_best(rec, best)
     kk = torch.arange(k, device=dev)[:, None]
     fdone = torch.where(done_k, kk, k).amin(dim=0)  # first completion
     ldone = torch.where(done_k, kk, -1).amax(dim=0)  # last completion
@@ -711,40 +839,36 @@ def _merge_staged_recorder(rec: Recorder, starts0: torch.Tensor,
     start_in = sb_k[k_in, r_in].reshape(4, 4)
 
     use_in = cand_ins > cand_cross
-    seg_best = torch.maximum(cand_ins, cand_cross)
-    take = seg_best > rec.best_score
-    best_moves = torch.where(take, torch.where(use_in, bm_in, bm_cross),
-                             rec.best_moves)
-    best_spawns = torch.where(take, torch.where(use_in, bs_in, bs_cross),
-                              rec.best_spawns)
-    best_start = torch.where(take, torch.where(use_in, start_in,
-                                               starts0[best_i]),
-                             rec.best_start)
-    best_len = torch.where(take, torch.where(use_in, len_in, l_cr),
-                           rec.best_len)
+    best = _BestGame(
+        score=torch.maximum(cand_ins, cand_cross),
+        moves=torch.where(use_in, bm_in, bm_cross),
+        spawns=torch.where(use_in, bs_in, bs_cross),
+        start=torch.where(use_in, start_in, starts0[best_i]),
+        length=torch.where(use_in, len_in, l_cr))
+    if mesh is not None:
+        # at one score a first completion beats any in-segment game,
+        # and an in-segment game of an earlier step a later one's
+        best = _global_best(mesh, best,
+                            torch.where(use_in, k - 1 - k_in, k), span=k + 1)
 
     # the scatter, after every read of the old rows above
     rows = torch.arange(r, device=dev).expand(k, r)
     rec.moves.index_put_((rows, col), mv)
     rec.spawns.index_put_((rows, col), sp)
-    return rec._replace(
-        best_moves=best_moves,
-        best_spawns=best_spawns,
-        best_start=best_start,
-        best_len=best_len,
-        best_score=torch.where(take, seg_best, rec.best_score),
-    )
+    return _take_best(rec, best)
 
 
 def make_train_segment(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
-                       draws: Draws):
+                       draws: Draws, mesh=None):
     """``tcfg.steps_per_call`` staged train steps, then one merge of
     their recorder rows: ``segment(state) -> state``.  The reference's
     ``lax.scan`` is a Python loop here; the host reads nothing from the
     device inside it.  Under ``sym_mode="periodic"`` the segment ends
     by projecting the weights (and the TC sums) onto the D4-symmetric
-    subspace (``symmetrize_table``), as the reference's does."""
-    step = make_train_step(ts, acfg, tcfg, draws)
+    subspace (``symmetrize_table``), as the reference's does; the
+    tables are replicated under a ``mesh``, so every rank projects its
+    own with no collective."""
+    step = make_train_step(ts, acfg, tcfg, draws, mesh=mesh)
 
     def segment(state: TDState) -> TDState:
         starts0 = state.recorder.starts
@@ -754,7 +878,7 @@ def make_train_segment(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
             recs.append(rs)
         stacked = RecStep(*(torch.stack(f) for f in zip(*recs)))
         state = state._replace(recorder=_merge_staged_recorder(
-            state.recorder, starts0, stacked, tcfg.max_record_steps))
+            state.recorder, starts0, stacked, tcfg.max_record_steps, mesh))
         if acfg.sym_mode == "periodic":
             state = state._replace(weights=symmetrize_table(ts, state.weights))
             if acfg.optimizer == "tc":

@@ -3,7 +3,7 @@
 A copy of the reference's frozen dataclasses and their dict helpers,
 field for field, so that the two packages read each other's stored
 configs: ``AgentConfig``, ``TrainConfig``, ``SearchConfig``,
-``to_dict`` and ``agent_config_from_dict``.  The comments are the
+``MeshConfig``, ``to_dict`` and ``agent_config_from_dict``.  The comments are the
 reference's; where they speak of Pallas kernels or the TPU, the port's
 counterpart is its CUDA kernels on the card (``ops/kernels.py``).
 ``tests/test_torch_shared.py`` holds the copy equal to its original.
@@ -44,8 +44,7 @@ class AgentConfig:
     # num_envs=1 (used by the sequential-equivalence tests).
     # (A row-local "rowmean" variant — normalizing only within-board
     # collisions to drop the dense hit-count scatter/gather pair —
-    # was measured 16.6 -> 12.0 ms at n=6 / 20.1 -> 15.6 ms at n=7
-    # on the sparse chain (scripts/r5_fold_n{6,7}.txt) and REJECTED:
+    # was tried by the reference and REJECTED:
     # cross-env collisions are systematic, not rare — every fresh run
     # starts all envs synchronized, and the all-empty cross/block
     # pattern is shared by many boards on every step — and without
@@ -91,13 +90,13 @@ class AgentConfig:
     # "auto": fused Pallas kernels on TPU, gather elsewhere;
     # "gather": XLA gather/scatter; "onehot": two-level one-hot MXU
     # matmuls in plain XLA; "pallas": fused Pallas kernels with
-    # VMEM-resident tables (TPU fast path, ~2x train throughput).
+    # VMEM-resident tables (in the port: the CUDA kernels' wrappers
+    # on any device, their plain versions on CPU tensors).
     table_ops: str = "auto"
     # Board representation in the train step (identical rollouts):
     # "cells": (N,4,4) int8 boards (reference-shaped, portable);
     # "codes": (N,4) int32 packed row codes — no rot90 relayouts,
-    # half the LUT gather traffic, ~2x train throughput on TPU
-    # (engine/fast.py).
+    # half the LUT gather traffic (engine/fast.py).
     engine_mode: str = "codes"
     # Weight-update rule:
     # "sgd": alpha-scheduled TD(0), the reference's rule
@@ -117,7 +116,7 @@ class AgentConfig:
     #   near-equally good), with the TD bootstrap value re-derived at
     #   full precision for the chosen afterstate from the indices
     #   already in hand — TD math stays exact while the 4N-row
-    #   selection pass runs at twice the MXU rate.  The default
+    #   selection pass takes the cheaper single pass.  The default
     #   (quality A/B'd against "bf16x2" at identical seeds, QUALITY.md
     #   round 5).  The gather classes are plain f32 gathers (exact) in
     #   either mode.
@@ -152,6 +151,14 @@ class SearchConfig:
     depth: int = 0
     width: int = 1
     since_empty: int = 6
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh / sharding configuration."""
+
+    data: int = 1  # environments sharded along this axis
+    model: int = 1  # optional weight-table sharding (TP analogue)
 
 
 def to_dict(cfg: Any) -> Dict[str, Any]:

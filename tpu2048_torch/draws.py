@@ -13,6 +13,9 @@ test can pass a source that replays the reference's own key schedule,
 so both packages play the same games from the same draws;
 ``NumpyDraws`` gives the same numbers on every device, so a run on
 the card and a run on the CPU can be fed identical draws.
+``EnvSliceDraws`` gives one rank of a data-parallel run its env range
+of the global batch's draws, so the games do not depend on the number
+of ranks.
 """
 
 from __future__ import annotations
@@ -149,3 +152,36 @@ class NumpyDraws(_OneStream):
                 self.uniform((n,)))
 
     reset = new
+
+
+class EnvSliceDraws:
+    """Rank ``rank`` of ``world``'s share of another source's draws.
+
+    Every rank seeds the same source.  A per-env draw of ``n`` (this
+    rank's envs) draws the global batch's ``n * world`` numbers and
+    keeps rows ``[rank * n, (rank + 1) * n)``; ``uniform`` (the fresh
+    weight table) is drawn whole, the same on every rank.  So every
+    rank's source advances alike: any rank's generator state is the
+    run's, and the global batch's draws are those of one rank alone."""
+
+    def __init__(self, inner: Draws, rank: int, world: int):
+        self.inner, self.rank, self.world = inner, rank, world
+
+    def _mine(self, draw, n: int):
+        rows = slice(self.rank * n, (self.rank + 1) * n)
+        return tuple(t[rows] for t in draw(n * self.world))
+
+    def split(self) -> None:
+        self.inner.split()
+
+    def uniform(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        return self.inner.uniform(shape)
+
+    def spawn(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._mine(self.inner.spawn, n)
+
+    def new(self, n: int) -> NewDraws:
+        return self._mine(self.inner.new, n)
+
+    def reset(self, n: int) -> NewDraws:
+        return self._mine(self.inner.reset, n)

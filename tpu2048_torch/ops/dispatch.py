@@ -273,7 +273,23 @@ def make_delta_accumulator(ts: TupleSet, mode: str) -> Callable:
     return acc
 
 
-def make_updater(ts: TupleSet, mode: str, mean: bool) -> Callable:
+def scatter_add_ordered(table: torch.Tensor, flat: torch.Tensor,
+                        upd: torch.Tensor) -> None:
+    """``table[flat] += upd`` in place (1-D), an entry's terms added in
+    the order of the list, whatever the device.  On CUDA tensors
+    ``index_add_`` adds colliding terms with atomics in no fixed order,
+    and ``index_put_`` with ``accumulate`` sorts the list stably and adds
+    each entry's run in turn; on CPU tensors it is the other way round
+    (``index_add_`` walks the list, ``index_put_`` spreads a long one
+    over threads that add atomically).  Replicas that apply one
+    gathered list this way stay bitwise equal."""
+    if table.device.type == "cuda":
+        table.index_put_((flat,), upd, accumulate=True)
+    else:
+        table.index_add_(0, flat, upd)
+
+
+def make_updater(ts: TupleSet, mode: str, mean: bool, mesh=None) -> Callable:
     """Returns update_fn(weights, idx (B, F), dw (B,), valid (B,)) ->
     weights, updated IN PLACE.
 
@@ -287,16 +303,27 @@ def make_updater(ts: TupleSet, mode: str, mean: bool) -> Callable:
     (over hits under ``mean``) is added to the class block; the larger
     classes as "gather", their hits counted over their own columns.
     Under ``mean`` the two paths round differently, as in the
-    reference: "gather" divides each update, "pallas" each sum."""
+    reference: "gather" divides each update, "pallas" each sum.
+
+    Under a ``mesh`` (``parallel/mesh.py``) the rows are this rank's
+    and the update is the global batch's: each class pair is
+    all-reduced, and the scattered rows are all-gathered in rank order
+    and added in the list's order (``scatter_add_ordered``), so the
+    hits are global and every rank's table takes the same bits."""
     resolve_mode(mode, torch.device("cpu"))
     classes = oh.build_table_classes(ts)
 
     def scatter(weights, idx, dw, valid):
+        if mesh is not None:
+            idx, dw, valid = mesh.all_gather_rows(idx, dw, valid)
         flat, upd, contrib = _flat_updates(idx, dw, valid)
         if mean:
             hits = torch.zeros_like(weights).index_add_(0, flat, contrib)
             upd = upd / hits[flat].clamp(min=1.0)
-        weights.index_add_(0, flat, upd)
+        if mesh is not None:
+            scatter_add_ordered(weights, flat, upd)
+        else:
+            weights.index_add_(0, flat, upd)
 
     def update(weights: torch.Tensor, idx: torch.Tensor, dw: torch.Tensor,
                valid: torch.Tensor) -> torch.Tensor:
@@ -305,7 +332,10 @@ def make_updater(ts: TupleSet, mode: str, mean: bool) -> Callable:
             return weights
         for c in classes.matmul:
             hi, lo = oh._hi_lo(ts, idx, c)
-            dsum, hits = kernels.grad_class(hi, lo, dw, valid, c.h, c.l)
+            pair = kernels.grad_class(hi, lo, dw, valid, c.h, c.l)
+            if mesh is not None:
+                mesh.all_reduce(pair)
+            dsum, hits = pair
             if mean:
                 dsum = dsum / hits.clamp(min=1.0)
             size = c.g * c.h * c.l

@@ -1,4 +1,4 @@
-"""The host training loop on one device (``tpu2048/train/loop.py``).
+"""The host training loop (``tpu2048/train/loop.py``).
 
 The reference's cadence, measured in completed episodes: ma-100
 points, per-1000 summaries with tile-reach shares and the best board,
@@ -13,8 +13,14 @@ may change the device type too: the saved generator state continues
 only on a generator of its own type (CPU or CUDA), and otherwise the
 stream starts afresh from ``tcfg.seed``, as the log says.
 
-Not ported yet: a device mesh (``mesh=``, ROADMAP.md Queue 1 item 5)
-and a profiler trace (``trace_dir=``, item 6).
+Under a device mesh (``mesh=``, ``parallel/mesh.py``) every rank runs
+this loop on its share of the env batch; the state's replicated leaves
+(tables, metrics, best game) are the same on all, so every rank takes
+the same turns, and only rank 0 writes: checkpoints, the best game, the
+metrics file and the log.
+
+Not ported yet: a profiler trace (``trace_dir=``, ROADMAP.md Queue 1
+item 6).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ..obs.jobs import Job
 from ..obs.logging import Logger
 from ..obs.metrics import MetricsWriter
 from ..obs.profiler import Timer
+from ..parallel import mesh as pmesh
 from ..store import checkpoint as ckpt
 from ..store.artifacts import ArtifactStore
 from . import card_device
@@ -76,12 +83,17 @@ def _np(x: torch.Tensor) -> np.ndarray:
 
 
 class Trainer:
-    """Owns one agent's training session on one device.
+    """Owns one agent's training session on one device, or this
+    rank's part of it on a mesh.
 
-    ``device`` defaults to the CUDA card, and without one the trainer
-    raises: the CPU runs only when asked for (``device="cpu"``).
-    Draws come from a ``torch.Generator`` on the device seeded with
-    ``tcfg.seed``; its state is saved with every checkpoint.
+    ``device`` defaults to the CUDA card (under a ``mesh``, to the
+    mesh's device), and without one the trainer raises: the CPU runs
+    only when asked for (``device="cpu"``).  Draws come from a
+    ``torch.Generator`` on the device seeded with ``tcfg.seed``; its
+    state is saved with every checkpoint.  Under a mesh
+    ``tcfg.num_envs`` is the global env count, every rank seeds alike
+    and takes its env range of the draws, and a resume loads the same
+    checkpoint in every rank.
     """
 
     def __init__(
@@ -95,19 +107,27 @@ class Trainer:
         resume: bool = False,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet: it waits for ROADMAP.md "
-                'Queue 1 item 5 ("Data parallel + multi-process")')
         self.name = name
         self.acfg = acfg
         self.tcfg = tcfg
         self.store = store
-        self.log = logger or Logger(console=True)
+        self.mesh = mesh
+        # only one process writes artifacts, metrics and the log
+        self._is_writer = mesh is None or mesh.rank == 0
+        self.log = ((logger or Logger(console=True)) if self._is_writer
+                    else Logger(console=False))
         self.ts = get_tuple_set(acfg.n)
-        self.device = card_device(device, "Trainer")
-        self.metrics_writer = (MetricsWriter(store, name)
-                               if store is not None else None)
+        if mesh is None:
+            self.device = card_device(device, "Trainer")
+        else:
+            self.device = mesh.device
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"the mesh runs on {mesh.device}, not on "
+                                 f"{device}")
+        self.metrics_writer = (
+            MetricsWriter(store, name)
+            if store is not None and self._is_writer else None)
         self.train_history: list = []
         gen = torch.Generator(device=self.device)
         gen.manual_seed(tcfg.seed)
@@ -141,10 +161,17 @@ class Trainer:
             self.train_history = list(meta.get("train_history", []))
             self._provenance = {k: meta[k] for k in
                                 ("forked_from", "source_episodes") if k in meta}
-        self.state = td.init_td_state(self.ts, acfg, tcfg, self.draws,
-                                      self.device, weights=weights)
-        self._segment = td.make_train_segment(self.ts, acfg, tcfg,
-                                              self.draws)
+        if mesh is not None:
+            # mesh-native init: each rank builds only its share
+            self.state = pmesh.init_sharded_td_state(
+                self.ts, acfg, tcfg, mesh, self.draws, weights=weights)
+            self._segment = pmesh.make_sharded_train_segment(
+                self.ts, acfg, tcfg, mesh, self.draws)
+        else:
+            self.state = td.init_td_state(self.ts, acfg, tcfg, self.draws,
+                                          self.device, weights=weights)
+            self._segment = td.make_train_segment(self.ts, acfg, tcfg,
+                                                  self.draws)
         if resume and meta:
             self._restore(meta)
         self._saved_best = int(self.state.metrics.best_score)
@@ -298,8 +325,11 @@ class Trainer:
     def save(self) -> None:
         """The agent in the reference's checkpoint format: weights, the
         TC accumulators, and the generator's state and device type
-        under keys of their own (no ``rng_key``)."""
-        if self.store is None:
+        under keys of their own (no ``rng_key``).  Every leaf a
+        checkpoint holds is replicated under a mesh (the model axis is
+        not ported), so rank 0 reads its own copy with no collective
+        and the other ranks have nothing to do."""
+        if self.store is None or not self._is_writer:
             return
         st = self.state
         extras = {RNG_EXTRA: _np(self.draws.generator.get_state()),
@@ -321,7 +351,7 @@ class Trainer:
                         meta, extras=extras)
 
     def _maybe_save_best_game(self) -> None:
-        if self.store is None:
+        if self.store is None or not self._is_writer:
             return
         best = int(self.state.recorder.best_score)
         if best > self._saved_best:
@@ -366,7 +396,8 @@ class Trainer:
             with timer.section("metrics_read"):
                 # the one read of the segment waits for the device
                 episodes = int(self.state.metrics.episodes)
-                if registry is not None and job is not None:
+                if registry is not None and job is not None \
+                        and self._is_writer:
                     registry.heartbeat(job.parent)
                 next_100 = self._drain_history(next_100)
             if episodes >= next_1000:
@@ -387,6 +418,10 @@ class Trainer:
         self.log.add("timing:\n" + timer.report())
         self._maybe_save_best_game()
         self.save()
+        if self.mesh is not None:
+            # no rank may leave run() (and possibly re-read the
+            # checkpoint for a resume) before rank 0 finished the save
+            self.mesh.barrier()
         episodes = int(self.state.metrics.episodes)
         if self.store is not None:
             self.log.add(f"{self.name} saved at episode {episodes}")
