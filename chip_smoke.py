@@ -120,11 +120,29 @@ Phases, one line of output each (the kernel phases one per check):
      best game equal the one-rank CPU run's bitwise, the tables within
      2^-17, and the two replicas are bitwise equal; with two or more
      cards the same on two NCCL ranks against the one-card run's tables
-     (with one card the line says that this was not run).
+     (with one card the line says that this was not run);
+ 16. apps: the port's HTTP server (``apps/server.py``) over an
+     ``AppService`` with no device argument, so on the card, driven over
+     HTTP with ``urllib``: a train job of a new n=5 agent at the shipped
+     width (8192 envs, K=64) to APP_EPISODES episodes (a checkpoint and
+     ma-100 lines in its log, the chart and the agent listed), launching
+     every kernel on every step; a long job then stopped ("training
+     cancelled"); a 1000-game greedy test job through ``eval_class``
+     whose best game replays to its logged score; a device watch at
+     depth 1 / width 2 through ``eval_class`` (legal moves, scores that
+     never fall); ``/api/stats`` reading the card's memory and name; the
+     phase's seconds, the train job's env-steps/s, the test job's
+     moves/s and each job's launches;
+ 17. trace: ``Trainer.run(trace_dir=...)`` of the defaults at the shipped
+     width for TRACE_SEGMENTS segments: the ``torch.profiler`` trace holds
+     one kernel event per launch of each wrapper (and ``grad_class``'s
+     fill) among the step's other kernels; its bytes, events, kernel
+     events per step and the kernels' histogram by device time, and
+     env-steps/s beside an untraced run's, as a reading.
 
 Then a JSON line of the kernels of the paths (name, route,
 source, the TPU kernel it replaces, its launches in the serve, train,
-search, train_variant, flagship, n7 and mesh runs, its largest error
+search, train_variant, flagship, n7, mesh and apps runs, its largest error
 against the plain
 version, its, the plain version's and the library call's time in ms,
 and its bound:
@@ -161,6 +179,29 @@ FLAGSHIP_SEGMENTS = 8  # n=6 at the shipped width
 N7_SEGMENTS = 2
 RANKS_ENVS = 64  # phase 15's width: small enough that no argmax flips
 RANKS_TIMEOUT = 300  # seconds for phase 15's ranks, then they are killed
+APP_EPISODES = 2000  # phase 16's train job: a few segments at 8192 envs
+APP_TEST_GAMES = 1000
+APP_WATCH_FRAMES = 10
+APP_WAIT_S = 300  # the longest phase 16 waits for one job
+TRACE_SEGMENTS = 2  # phase 17's traced run
+TRACE_TOP = 12  # kernels of the traced step's histogram printed by name
+# the traced step's kernels by kind: the first kind whose text is in a
+# kernel's name takes it
+KERNEL_KINDS = [("eval_class", "eval_class_kernel"),
+                ("grad_class", "grad_class_kernel"),
+                ("grad_class fill", "zero_pair"),
+                ("fold_class", "fold_class_kernel"),
+                ("advanced-index gather", "index_elementwise_kernel"),
+                ("engine gather", "vectorized_gather_kernel"),
+                ("index_add_", "indexFuncLargeIndex"),
+                ("index_put_", "index_put"),
+                ("reduction", "reduce_kernel"),
+                ("copy/convert", "direct_copy_kernel"),
+                ("fill/zero", "FillFunctor"),
+                ("cat/stack", "CatArrayBatchedCopy"),
+                ("scan", "scan"),
+                ("sort", "sort"),
+                ("elementwise", "elementwise_kernel")]
 # the learner settings off the defaults (phase 10), at n=5 through
 # table_ops="pallas"; "sum" at a small alpha, where 8192 envs' summed
 # updates stay small
@@ -960,7 +1001,7 @@ def phase_train(name: str) -> tuple:
             raise AssertionError("non-finite weights after training")
         if out["episodes"] <= 0:
             raise AssertionError("no episode completed")
-        _replays(store, name, out["top_score"])
+        _replays(store, f"best_of_{name}", out["top_score"])
         acfg2, w_np, meta = load_agent(store, name)
         if (acfg2 != acfg or w_np.shape != st.weights.shape
                 or "opt_e" not in meta["extras"]):
@@ -985,24 +1026,24 @@ def phase_train(name: str) -> tuple:
     return launches, st
 
 
-def _replays(store, name: str, top_score: int) -> None:
-    """The saved best game replays to the run's best score."""
+def _replays(store, game: str, top_score: int) -> None:
+    """The saved game replays to the run's best score."""
     from tpu2048_torch.engine.core import np_move
     from tpu2048_torch.store.checkpoint import load_game
 
-    rec = load_game(store, f"best_of_{name}")
+    rec = load_game(store, game)
     board, score = rec["starting_position"].copy(), 0
     for t in range(rec["odometer"]):
         board, delta, changed = np_move(board, int(rec["moves"][t]))
         if not changed:
-            raise AssertionError(f"{name} best game: illegal move at {t}")
+            raise AssertionError(f"{game}: illegal move at {t}")
         val, i, j = rec["tiles"][t]
         board[i, j] = val
         score += delta
     if (score != rec["score"] or not (board == rec["final_board"]).all()
             or score != top_score):
-        raise AssertionError(f"{name}: the saved best game does not replay "
-                             "to the run's best score")
+        raise AssertionError(f"{game} does not replay to the run's best "
+                             "score")
 
 
 def phase_train_variant(name: str) -> dict:
@@ -1039,7 +1080,7 @@ def phase_train_variant(name: str) -> dict:
             raise AssertionError("sgd/index: non-finite weights")
         if out["episodes"] <= 0:
             raise AssertionError("sgd/index: no episode completed")
-        _replays(store, name, out["top_score"])
+        _replays(store, f"best_of_{name}", out["top_score"])
         resumed = {}
         for dev in ("cuda", "cpu"):
             log = Logger(store=MemoryStore(), console=False)
@@ -1256,7 +1297,7 @@ def phase_flagship(n: int, segments: int, name: str, save: bool) -> dict:
         if save:
             if len(hist) < 2 or not hist[-1] > hist[0]:
                 raise AssertionError(f"n={n}: the ma-100 did not rise: {hist}")
-            _replays(store, name, out["top_score"])
+            _replays(store, f"best_of_{name}", out["top_score"])
             acfg2, w_np, meta = load_agent(store, name)
             if (acfg2 != acfg or w_np.shape != st.weights.shape
                     or not np.array_equal(meta["extras"]["opt_a"],
@@ -1628,6 +1669,281 @@ def phase_two_ranks() -> None:
               why=f"{cards} card here: NCCL takes one rank per device")
 
 
+def _http(port: int, path: str, body=None):
+    """GET ``path`` (or POST ``body`` to it) on the local app server;
+    the JSON answer."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method="GET" if body is None
+        else "POST", data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def _wait(what: str, ready, limit_s: float = APP_WAIT_S):
+    """Poll ``ready()`` until it returns something true; raise after
+    ``limit_s`` seconds."""
+    deadline = time.perf_counter() + limit_s
+    while True:
+        got = ready()
+        if got:
+            return got
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"apps: {what} not within {limit_s} s")
+        time.sleep(0.25)
+
+
+def _finished(port: int, name: str):
+    """The train job's status once it has finished, else None."""
+    st = _http(port, f"/api/train/status?name={name}")
+    return st if st["state"] == "finished" else None
+
+
+def _log_once(port: int, key: str, text: str):
+    """The session log once it holds ``text``, else None."""
+    log = _http(port, f"/api/logs?key={key}")["text"]
+    return log if text in log else None
+
+
+def _segments(log: str) -> int:
+    """The train segments of a job, from its log's timing report."""
+    import re
+
+    found = re.findall(r"^train_segment\s+\S+s\s+x(\d+)", log, re.M)
+    if len(found) != 1:
+        raise AssertionError("apps: no single timing line in the job's log")
+    return int(found[0])
+
+
+def phase_apps() -> dict:
+    """Phase 16: the port's HTTP server over an ``AppService`` with no
+    device argument (the card), driven over HTTP: a train job of a new
+    n=5 agent at the shipped width to APP_EPISODES episodes, then a
+    long one stopped; a 1000-game greedy test job whose best game
+    replays to its logged score; a device watch at depth 1 / width 2
+    with legal moves and rising scores; the card's memory in
+    ``/api/stats``; each job's kernel launches.  Returns the launches
+    of the phase."""
+    import re
+
+    from tpu2048_torch.apps.server import AppServer
+    from tpu2048_torch.apps.service import AppService
+    from tpu2048_torch.config import TrainConfig
+    from tpu2048_torch.engine.core import np_move
+    from tpu2048_torch.store.artifacts import MemoryStore
+
+    t0 = time.perf_counter()
+    shipped = TrainConfig()
+    if (shipped.num_envs, shipped.steps_per_call) != (TRAIN_B, 64):
+        raise AssertionError("the shipped TrainConfig changed its width")
+    service = AppService(MemoryStore(),
+                         default_tcfg=TrainConfig(episodes=APP_EPISODES))
+    if service.device.type != "cuda":
+        raise AssertionError(f"apps: the service took {service.device}")
+    server = AppServer(service, port=0, vacuum_interval=3600)
+    server.start()
+    port, name = server.port, "app_n5"
+    jobs = {}
+    _reset_launches()
+    try:
+        # -- train: a new agent, then a long job stopped ----------------
+        before = _launch_counts()
+        r = _http(port, "/api/train/start", {
+            "params": {"name": name, "n": 5, "episodes": APP_EPISODES},
+            "new_agent": True})
+        st = _wait("the train job's end", lambda: _finished(port, name))
+        if st["error"] is not None:
+            raise AssertionError(f"apps: the train job failed: {st['error']}")
+        log = _http(port, f"/api/logs?key={r['log']}")["text"]
+        steps = _segments(log) * shipped.steps_per_call
+        launches = {k: v - before[k] for k, v in _launch_counts().items()}
+        if launches != _default_step_launches(steps):
+            raise AssertionError(f"apps: the train job launched {launches} "
+                                 f"in {steps} steps")
+        chart = _http(port, f"/api/chart?name={name}")
+        if (not chart["y"] or name not in _http(port, "/api/agents")
+                or "ma_100 = " not in log or f"{name} saved" not in log
+                or st["result"]["episodes"] < APP_EPISODES):
+            raise AssertionError("apps: the train job left no chart, agent, "
+                                 "ma-100 line or checkpoint")
+        jobs["train"] = dict(
+            steps=steps, episodes=st["result"]["episodes"],
+            env_steps_per_s=st["result"]["env_steps_per_sec"],
+            log_rate=re.findall(r"\((\d+K) env-steps/s\)", log),
+            timer=re.findall(r"^(?:train_segment|metrics_read|checkpoint)"
+                             r"\s.*$", log, re.M),
+            chart_points=len(chart["y"]), launches=launches)
+        r = _http(port, "/api/train/start", {
+            "params": {"name": name, "n": 5, "episodes": 10**9},
+            "new_agent": False})
+        _wait("the long job's start", lambda: _log_once(
+            port, r["log"], "training session started"))
+        if not _http(port, "/api/train/stop", {"name": name})["stopped"]:
+            raise AssertionError("apps: the long job did not stop")
+        st = _wait("the stopped job's end", lambda: _finished(port, name))
+        log = _http(port, f"/api/logs?key={r['log']}")["text"]
+        if st["error"] is not None or "training cancelled" not in log:
+            raise AssertionError(f"apps: the stopped job: {st}")
+        jobs["train_stopped"] = dict(segments=_segments(log))
+        # -- test: 1000 greedy games ------------------------------------
+        before = _launch_counts()
+        r = _http(port, "/api/test/start", {"name": name,
+                                            "num": APP_TEST_GAMES,
+                                            "depth": 0})
+        log = _wait("the test job's best game", lambda: _log_once(
+            port, r["log"], "Best game saved"))
+        job = service.jobs.get("test", name)
+        job.thread.join(timeout=APP_WAIT_S)
+        if job.alive or job.error is not None:
+            raise AssertionError(f"apps: the test job failed: {job.error}")
+        launches = {k: v - before[k] for k, v in _launch_counts().items()}
+        if (f"average score of {APP_TEST_GAMES} runs" not in log
+                or launches["eval_class"] <= 0
+                or launches["grad_class"] or launches["fold_class"]):
+            raise AssertionError(f"apps: the test job: {launches}")
+        best = int(re.search(r"Best games:\n(?:.*\n){4}score = (\d+)",
+                             log).group(1))
+        _replays(service.store, f"best_trial_{name}", best)
+        frames = _http(port, f"/api/replay?name=best_trial_{name}")
+        if frames[-1]["score"] != best or frames[-1]["next_move"] != -1:
+            raise AssertionError("apps: /api/replay does not end the best "
+                                 "test game at its logged score")
+        moves = int(re.search(r"total env-moves = (\d+)", log).group(1))
+        secs = float(re.search(r"total time = ([\d.]+)", log).group(1))
+        jobs["test"] = dict(games=APP_TEST_GAMES, best=best,
+                            avg=job.result["avg"], env_moves=moves,
+                            moves_per_s=moves / secs, seconds=secs,
+                            launches=launches)
+        # -- device watch -----------------------------------------------
+        before = _launch_counts()
+        sid = _http(port, "/api/watch/start", {
+            "name": name, "backend": "device", "depth": 1, "width": 2})[
+                "session"]
+        def watched():
+            got = _http(port, f"/api/watch/frames?session={sid}&since=0")
+            done = len(got["frames"]) > APP_WATCH_FRAMES or got["done"]
+            return got["frames"] if done else None
+
+        frames = _wait("ten watch frames", watched)
+        _http(port, "/api/watch/stop", {"session": sid})
+        job = service.jobs.get("watch", sid)
+        job.thread.join(timeout=APP_WAIT_S)
+        if job.alive or job.error is not None:
+            raise AssertionError(f"apps: the watch job failed: {job.error}")
+        launches = {k: v - before[k] for k, v in _launch_counts().items()}
+        played = [f for f in frames if f["next_move"] in (0, 1, 2, 3)]
+        if len(played) < APP_WATCH_FRAMES or launches["eval_class"] <= 0:
+            raise AssertionError(f"apps: the watch: {len(played)} moves, "
+                                 f"{launches}")
+        for f in played:
+            if not np_move(np.asarray(f["board"], np.int8),
+                           f["next_move"])[2]:
+                raise AssertionError(f"apps: an illegal watch move: {f}")
+        scores = [f["score"] for f in frames]
+        if any(b < a for a, b in zip(scores, scores[1:])):
+            raise AssertionError("apps: a watch score fell")
+        jobs["watch"] = dict(frames=len(frames), moves=len(played),
+                             launches=launches)
+        # -- stats ------------------------------------------------------
+        now = _http(port, "/api/stats")["now"]
+        total_mb = torch.cuda.get_device_properties(0).total_memory / 2**20
+        if (not now.get("hbm_in_use_mb", 0) > 0
+                or abs(now["hbm_limit_mb"] - total_mb) > 1
+                or now["device"] != torch.cuda.get_device_name(0)):
+            raise AssertionError(f"apps: /api/stats reads {now}")
+        jobs["stats"] = {k: now[k] for k in ("hbm_in_use_mb", "hbm_limit_mb",
+                                              "device", "rss_mb")}
+    finally:
+        server.stop()
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    _line("apps", seconds=time.perf_counter() - t0, n=5, envs=TRAIN_B,
+          launches=launches, **jobs)
+    return launches
+
+
+def phase_trace() -> None:
+    """Phase 17: ``Trainer.run(trace_dir=...)`` of the defaults at the
+    shipped width for TRACE_SEGMENTS segments; the trace names all three
+    kernels (the wrappers' launches, one kernel event each, two for
+    ``grad_class``: its fill and its scatter) among the step's other
+    kernels; its size, events, kernel events per step and histogram;
+    env-steps/s beside an untraced run's, as a reading."""
+    import glob
+
+    from tpu2048_torch.config import AgentConfig, TrainConfig
+    from tpu2048_torch.train.loop import Trainer
+
+    tcfg = TrainConfig(episodes=10**9, checkpoint_every=10**9)
+    steps = TRACE_SEGMENTS * tcfg.steps_per_call
+    rates = {}
+    with tempfile.TemporaryDirectory() as root:
+        for traced in (False, True):
+            tr = Trainer("trace", AgentConfig(), tcfg, logger=_quiet(),
+                         device="cuda")
+            _reset_launches()
+            t0 = time.perf_counter()
+            out = tr.run(job=_StopAfter(TRACE_SEGMENTS),
+                         trace_dir=root if traced else None)
+            run_s = time.perf_counter() - t0
+            # the loop's own time, apart from the trace's stop and export
+            loop_s = (tr.timer.totals["train_segment"]
+                      + tr.timer.totals["metrics_read"])
+            rates["traced" if traced else "untraced"] = dict(
+                env_steps_per_s=out["env_steps_per_sec"],
+                loop_env_steps_per_s=TRAIN_B * steps / loop_s,
+                run_s=run_s, loop_s=loop_s)
+            del tr
+        launches = _launch_counts()
+        if launches != _default_step_launches(steps):
+            raise AssertionError(f"trace: the run launched {launches}")
+        files = glob.glob(os.path.join(root, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"trace: {len(files)} trace files")
+        size = os.path.getsize(files[0])
+        t0 = time.perf_counter()
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        read_s = time.perf_counter() - t0
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    symbols = {"eval_class": "eval_class_kernel",
+               "grad_class": "grad_class_kernel",
+               "fold_class": "fold_class_kernel"}
+    counts = {k: sum(sym in e["name"] for e in kern)
+              for k, sym in symbols.items()}
+    fills = sum("zero_pair" in e["name"] for e in kern)
+    if counts != launches or fills != launches["grad_class"]:
+        raise AssertionError(f"trace: kernel events {counts} (fills {fills}) "
+                             f"against launches {launches}")
+    hist, kinds = {}, {}
+    for e in kern:
+        kind = next((k for k, text in KERNEL_KINDS if text in e["name"]),
+                    "other")
+        for table, key in ((hist, e["name"]), (kinds, kind)):
+            h = table.setdefault(key, [0, 0.0])
+            h[0] += 1
+            h[1] += float(e.get("dur", 0.0))
+    if len(hist) <= 4:
+        raise AssertionError("trace: no kernels of the step besides the "
+                             "three")
+    top = sorted(hist.items(), key=lambda kv: -kv[1][1])[:TRACE_TOP]
+    device_us = sum(h[1] for h in hist.values())
+    _line("trace", n=5, envs=TRAIN_B, segments=TRACE_SEGMENTS, steps=steps,
+          trace_bytes=size, events=len(events), kernel_events=len(kern),
+          kernel_events_per_step=len(kern) / steps,
+          kernel_names=len(hist), kernel_us_per_step=device_us / steps,
+          kernels=counts, grad_class_fills=fills, read_s=read_s,
+          **rates,
+          by_kind={k: {"per_step": c / steps, "us_per_step": us / steps}
+                   for k, (c, us) in sorted(kinds.items(),
+                                            key=lambda kv: -kv[1][1])},
+          top_kernels_by_us=[{"name": n[:120], "count": c,
+                              "us_per_step": us / steps}
+                             for n, (c, us) in top])
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -1651,6 +1967,8 @@ def main() -> int:
     del mesh_state
     torch.distributed.destroy_process_group()
     phase_two_ranks()
+    apps = phase_apps()
+    phase_trace()
     loaded = sorted(m for m in sys.modules if m == "jax" or m == "tpu2048"
                     or m.startswith(("jax.", "tpu2048.")))
     if loaded:
@@ -1666,13 +1984,13 @@ def main() -> int:
         "source": f"tpu2048_torch/ops/csrc/{k}.cu",
         "replaces": replaces[k],
         "launches": train[k] + variant[k] + flagship[k] + n7[k] + meshed[k]
-        + (serve + search if k == "eval_class" else 0),
+        + apps[k] + (serve + search if k == "eval_class" else 0),
         "launches_by_path": {"serve": serve if k == "eval_class" else 0,
                              "train": train[k],
                              "search": search if k == "eval_class" else 0,
                              "train_variant": variant[k],
                              "flagship": flagship[k], "n7": n7[k],
-                             "mesh": meshed[k]},
+                             "mesh": meshed[k], "apps": apps[k]},
         "bound_by": "bytes",
         # the same two readings under this round's names
         "bound_us": 1e3 * kstats[k]["bound_ms"],

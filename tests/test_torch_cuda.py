@@ -481,3 +481,55 @@ def test_fixed_order_apply_is_bitwise_repeatable():
         0, flat, torch.ones(m, device=dev))
     bound = 2.0**-23 * (hits + 1.0) * (mass + base.abs())
     assert bool(((outs[0] - atomic).abs() <= bound).all())
+
+
+def test_app_service_test_job_on_the_card():
+    """An ``AppService`` with no device argument takes the card: its
+    test job plays through ``eval_class`` there, and the service's
+    telemetry reads the card's memory."""
+    dev = needs_card()
+    from tpu2048_torch.apps.service import AppService
+    from tpu2048_torch.features.ntuple import init_weights
+    from tpu2048_torch.obs import telemetry
+    from tpu2048_torch.store.artifacts import MemoryStore
+    from tpu2048_torch.store.checkpoint import save_agent
+
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    store = MemoryStore()
+    save_agent(store, "a", AgentConfig(),
+               init_weights(get_tuple_set(5), gen).numpy(), {"episodes": 0})
+    svc = AppService(store)
+    assert svc.device.type == dev.type
+    before = kernels.eval_class.launches
+    r = svc.start_test("a", num=64)
+    job = svc.jobs.get("test", "a")
+    job.thread.join(timeout=300)
+    assert not job.alive and job.error is None, job.error
+    assert kernels.eval_class.launches > before
+    assert "average score of 64 runs" in svc.logs(r["log"])
+    stats = telemetry.device_memory_stats()
+    assert stats["device"] == torch.cuda.get_device_name()
+    assert 0 < stats["bytes_in_use"] <= stats["peak_bytes_in_use"]
+    assert stats["bytes_limit"] == torch.cuda.get_device_properties(
+        dev).total_memory
+    now = svc.system_stats()["now"]
+    assert now["hbm_in_use_mb"] > 0 and now["device"] == stats["device"]
+
+
+def test_device_trace_records_the_cards_kernels(tmp_path):
+    """``device_trace`` on the card records the CUDA kernels it ran, the
+    hand-written ones by name, in a Chrome trace."""
+    import json
+
+    from tpu2048_torch.obs.profiler import device_trace
+
+    dev = needs_card()
+    tables, hi, lo = _inputs(17, 256, 256, 8192, seed=5, dev=dev)
+    with device_trace(str(tmp_path)):
+        kernels.eval_class(tables, hi, lo, "bf16")
+        torch.cuda.synchronize()
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "kernel"]
+    assert sum("eval_class_kernel" in n for n in names) == 1, names

@@ -137,6 +137,70 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "_build").exists()
 
 
+def test_concurrent_first_loads_build_once(monkeypatch, tmp_path):
+    """Jobs in many threads that reach the kernels at once build the
+    library once and bind it once: the others wait for the first."""
+    import ctypes
+    import sys
+    import threading
+    import time
+    from pathlib import Path
+    from unittest import mock
+
+    from tpu2048_torch.ops import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build, "_LIBRARY", None)
+    runs = []
+
+    def slow_nvcc(cmds):
+        """Stands for nvcc: writes each output after a while."""
+        runs.append(cmds)
+        time.sleep(0.3)
+        for cmd in cmds:
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return ""
+
+    monkeypatch.setattr(build, "_run_all", slow_nvcc)
+    binds = []
+
+    def slow_cdll(path):
+        binds.append(path)
+        time.sleep(0.3)
+        return mock.Mock()
+
+    monkeypatch.setattr(ctypes, "CDLL", slow_cdll)
+
+    def from_threads(fn, n=16):
+        start, got = threading.Barrier(n), [None] * n
+
+        def job(i):
+            start.wait()
+            got[i] = fn()
+
+        threads = [threading.Thread(target=job, args=(i,)) for i in range(n)]
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=30)
+        finally:
+            sys.setswitchinterval(interval)
+        assert not any(t.is_alive() for t in threads)
+        assert got[0] is not None and got.count(got[0]) == n
+
+    from_threads(build.build_library)
+    # one build: one batch of compiles, then one link
+    assert [any("-shared" in c for c in cmds) for cmds in runs] == [
+        False, True]
+    assert build._library_path().exists()
+    from_threads(build.load_library)
+    assert len(runs) == 2 and len(binds) == 1
+
+
 def test_resolve_mode():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert tdisp.resolve_mode("auto", cpu) == "gather"

@@ -1,35 +1,55 @@
 """The port's own copies of the JAX package's framework-neutral modules
-(``tpu2048_torch/config.py``, ``store/``, ``obs/``) against their
-originals: the same config fields, defaults and dicts; checkpoints and
+(``tpu2048_torch/config.py``, ``store/``, ``obs/``, ``engine/parity.py``,
+``native/`` and the apps' shared parts) against their originals: the
+same config fields, defaults and dicts; the same code; checkpoints and
 best games that cross between the two packages in both directions,
 bitwise; logs and metrics written alike."""
 
 import dataclasses
 import inspect
 import io
+import re
 import tokenize
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 import tpu2048.config as jcfg
+import tpu2048.native as jnative
+from tpu2048.apps import cli as jcli
+from tpu2048.apps import server as jserver
+from tpu2048.apps import service as jservice
+from tpu2048.apps import viewer as jviewer
+from tpu2048.apps import webui as jwebui
+from tpu2048.engine import parity as jparity
 from tpu2048.obs import jobs as jjobs
 from tpu2048.obs import logging as jlog
 from tpu2048.obs import metrics as jmet
 from tpu2048.obs import profiler as jprof
+from tpu2048.obs import telemetry as jtel
 from tpu2048.store import artifacts as jart
 from tpu2048.store import checkpoint as jckpt
 import tpu2048_torch.config as tcfg
+import tpu2048_torch.native as tnative
+from tpu2048_torch.apps import cli as tcli
+from tpu2048_torch.apps import server as tserver
+from tpu2048_torch.apps import service as tservice
+from tpu2048_torch.apps import viewer as tviewer
+from tpu2048_torch.apps import webui as twebui
+from tpu2048_torch.engine import parity as tparity
 from tpu2048_torch.obs import jobs as tjobs
 from tpu2048_torch.obs import logging as tlog
 from tpu2048_torch.obs import metrics as tmet
 from tpu2048_torch.obs import profiler as tprof
+from tpu2048_torch.obs import telemetry as ttel
 from tpu2048_torch.store import artifacts as tart
 from tpu2048_torch.store import checkpoint as tckpt
 
 
 @pytest.mark.parametrize("name", ["AgentConfig", "TrainConfig",
-                                  "SearchConfig", "MeshConfig"])
+                                  "SearchConfig", "MeshConfig",
+                                  "StorageConfig"])
 def test_config_fields_defaults_and_dicts(name):
     a, b = getattr(jcfg, name), getattr(tcfg, name)
     fa = [(f.name, f.type, f.default) for f in dataclasses.fields(a)]
@@ -54,13 +74,24 @@ VERBATIM = [
     (jart, tart, ["ArtifactStore", "_encode", "_decode", "_SerializingStore",
                   "LocalStore", "MemoryStore", "S3Store", "open_store"]),
     (jcfg, tcfg, ["AgentConfig", "TrainConfig", "SearchConfig", "MeshConfig",
-                  "to_dict", "agent_config_from_dict"]),
+                  "StorageConfig", "to_dict", "agent_config_from_dict",
+                  "train_config_from_dict"]),
     (jlog, tlog, ["log_key", "Logger"]),
     (jmet, tmet, ["metrics_key", "MetricsWriter", "train_history"]),
     (jjobs, tjobs, ["JobRegistry", "Job", "JobManager"]),
     (jprof, tprof, ["Timer"]),
     (jckpt, tckpt, ["agent_key", "weights_key", "game_key", "load_agent",
                     "save_game", "load_game"]),
+    (jparity, tparity, ["random_eval", "score_eval", "ParityGame"]),
+    (jnative, tnative, ["_build_dir", "_compile", "_load", "available",
+                        "TupleSpecC", "NativeEngine"]),
+    # telemetry apart from device_memory_stats, which reads torch.cuda
+    (jtel, ttel, ["process_rss_mb", "snapshot", "MemoryMonitor"]),
+    (jserver, tserver, ["ApiError", "make_handler", "AppServer"]),
+    (jservice, tservice, ["_frame", "WatchSession"]),
+    (jcli, tcli, ["render_board", "np_estimator", "play_yourself",
+                  "replay_game", "_pick", "_speed"]),
+    (jviewer, tviewer, ["main"]),
 ]
 
 
@@ -71,9 +102,53 @@ def test_copies_are_verbatim(orig, copy, names):
         assert _code(getattr(copy, name)) == _code(getattr(orig, name)), name
 
 
+# the copies that load an agent's table take it onto the CPU by name:
+# the port's ``load_agent_dense`` puts the table on the device it is
+# given, and these host-side players are otherwise the reference's
+ON_CPU = [(jcli, tcli, "watch_agent"), (jviewer, tviewer, "Viewer")]
+
+
+@pytest.mark.parametrize("orig,copy,name", ON_CPU,
+                         ids=[n for _, _, n in ON_CPU])
+def test_host_players_differ_only_in_taking_the_cpu(orig, copy, name):
+    port = inspect.getsource(getattr(copy, name))
+    assert port.count('load_agent_dense(store, name, "cpu")') == 1
+    port = port.replace('load_agent_dense(store, name, "cpu")',
+                        "load_agent_dense(store, name)")
+    assert _code_of(port) == _code(getattr(orig, name))
+
+
+def test_shared_values_are_equal():
+    """The page, the modes, the form and the colours are the
+    reference's, and so is the telemetry artifact's key."""
+    assert twebui.INDEX_HTML == jwebui.INDEX_HTML
+    assert tservice.MODES == jservice.MODES
+    assert tservice.PARAMS_SPEC == jservice.PARAMS_SPEC
+    assert tcli.ANSI_COLORS == jcli.ANSI_COLORS
+    assert tviewer.TILE_COLORS == jviewer.TILE_COLORS
+    assert ttel.MEMORY_KEY == jtel.MEMORY_KEY
+
+
+def test_native_source_is_the_reference_code():
+    """``engine2048.cpp`` is the reference's, character for character
+    once comments are set aside (the copy's header names its origin)."""
+    def code(path):
+        text = re.sub(r"//[^\n]*", "", path.read_text())
+        return [ln.rstrip() for ln in text.splitlines() if ln.strip()]
+
+    src = Path(tnative.__file__).with_name("engine2048.cpp")
+    assert tnative._SRC == src
+    assert code(src) == code(Path(jnative.__file__).with_name(
+        "engine2048.cpp"))
+
+
 def _code(obj) -> list:
     """The tokens of ``obj``'s source, comments left out."""
-    src = io.StringIO(inspect.getsource(obj)).readline
+    return _code_of(inspect.getsource(obj))
+
+
+def _code_of(source: str) -> list:
+    src = io.StringIO(source).readline
     return [(t.type, t.string) for t in tokenize.generate_tokens(src)
             if t.type not in (tokenize.COMMENT, tokenize.NL)]
 

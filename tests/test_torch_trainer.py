@@ -182,7 +182,7 @@ def test_trainer_stops_on_cancel():
 
 
 @pytest.mark.parametrize("what", ["mesh", "trace_dir"])
-def test_unported_trainer_options_raise(what):
+def test_unported_trainer_options_raise(what, tmp_path):
     if what == "mesh":
         # the data axis is ported; the model axis still raises
         from tpu2048_torch.config import MeshConfig
@@ -194,9 +194,18 @@ def test_unported_trainer_options_raise(what):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             make_mesh(MeshConfig(data=1, model=2), device="cpu")
     else:
-        tr = Trainer("x", ACFG, TCFG, logger=_quiet(), device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tr.run(trace_dir="/nonexistent")
+        # ported: a session cancelled before its first segment still
+        # writes its (host-only, on the CPU) trace and says where
+        log = Logger(store=MemoryStore(), key="l/t.txt", console=False)
+        tr = Trainer("x", ACFG, TCFG, logger=log, device="cpu")
+
+        class Stop:
+            def should_stop(self):
+                return True
+
+        tr.run(job=Stop(), trace_dir=str(tmp_path / "trace"))
+        assert list((tmp_path / "trace").glob("*.pt.trace.json"))
+        assert f"device trace written to {tmp_path / 'trace'}" in log.tail()
 
 
 class _Once:

@@ -198,6 +198,25 @@ def test_port_imports_no_jax():
             assert int(tr.state.env.odometer.max()) == 2
         fn, args = torch_graft_entry.entry(device="cpu")
         assert fn(*args)[0].shape == (1024,)
+        # the apps: a test job served through the service, to its end
+        import tpu2048_torch.apps.cli
+        import tpu2048_torch.apps.server
+        import tpu2048_torch.apps.webui
+        import tpu2048_torch.native
+        import tpu2048_torch.obs.telemetry
+        from tpu2048_torch.apps.service import AppService
+        from tpu2048_torch.store.artifacts import MemoryStore
+        from tpu2048_torch.store.checkpoint import save_agent
+        store = MemoryStore()
+        save_agent(store, "a", AgentConfig(n=2),
+                   ntuple.init_weights(ntuple.get_tuple_set(2), g).numpy(),
+                   {"episodes": 0})
+        svc = AppService(store, device="cpu")
+        svc.start_test("a", num=2)
+        job = svc.jobs.get("test", "a")
+        job.thread.join(timeout=120)
+        assert job.error is None and job.result["avg"] > 0, job.error
+        assert svc.system_stats()["now"]["rss_mb"] > 0
         assert "jax" not in sys.modules, "the port loaded jax"
         ref = sorted(m for m in sys.modules
                      if m == "tpu2048" or m.startswith("tpu2048."))

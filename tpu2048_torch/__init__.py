@@ -34,9 +34,16 @@ and ``make_updater`` (``grad_class`` for the 16^2..16^4 classes),
 
 and expectimax search through ``trial(search=SearchConfig(depth>0))``.
 
+The apps drive these paths as the reference's users drive them:
+
+    apps/server.AppServer (HTTP, the page of apps/webui) -> apps/service
+      .AppService jobs: train -> train/loop.Trainer; test and the
+      "device" watch -> train/trial.trial (on the card by default)
+
 The port imports nothing of ``tpu2048``: what it needs of the
 reference's framework-neutral modules has its own copy here
-(``config.py``, ``store/``, ``obs/``), held equal to the original by
+(``config.py``, ``store/``, ``obs/``, ``engine/parity.py``, ``native/``
+and the apps' shared parts), held equal to the original by
 ``tests/test_torch_shared.py``, so checkpoints cross both ways.
 """
 

@@ -3,7 +3,8 @@
 A copy of the reference's frozen dataclasses and their dict helpers,
 field for field, so that the two packages read each other's stored
 configs: ``AgentConfig``, ``TrainConfig``, ``SearchConfig``,
-``MeshConfig``, ``to_dict`` and ``agent_config_from_dict``.  The comments are the
+``MeshConfig``, ``StorageConfig``, ``to_dict``, ``agent_config_from_dict``
+and ``train_config_from_dict``.  The comments are the
 reference's; where they speak of Pallas kernels or the TPU, the port's
 counterpart is its CUDA kernels on the card (``ops/kernels.py``).
 ``tests/test_torch_shared.py`` holds the copy equal to its original.
@@ -161,6 +162,13 @@ class MeshConfig:
     model: int = 1  # optional weight-table sharding (TP analogue)
 
 
+@dataclass(frozen=True)
+class StorageConfig:
+    backend: str = "local"  # "local" | "s3" | "memory"
+    root: str = "~/.tpu2048"
+    bucket: str = ""
+
+
 def to_dict(cfg: Any) -> Dict[str, Any]:
     return dataclasses.asdict(cfg)
 
@@ -168,3 +176,8 @@ def to_dict(cfg: Any) -> Dict[str, Any]:
 def agent_config_from_dict(d: Dict[str, Any]) -> AgentConfig:
     names = {f.name for f in dataclasses.fields(AgentConfig)}
     return AgentConfig(**{k: v for k, v in d.items() if k in names})
+
+
+def train_config_from_dict(d: Dict[str, Any]) -> TrainConfig:
+    names = {f.name for f in dataclasses.fields(TrainConfig)}
+    return TrainConfig(**{k: v for k, v in d.items() if k in names})

@@ -1,16 +1,16 @@
-"""Host timing of the port (``tpu2048/obs/profiler.py``, ``Timer``
-copied).
-
-The reference's ``device_trace`` wraps ``jax.profiler`` and is not
-copied: the port's ``Trainer.run(trace_dir=...)`` raises until its
-``torch.profiler`` counterpart lands (ROADMAP.md Queue 1 item 6).
+"""Profiling hooks of the port (``tpu2048/obs/profiler.py``): a timing
+context for the host loop (``Timer``, copied), and ``device_trace``,
+the reference's ``jax.profiler`` capture done with ``torch.profiler``:
+a trace that TensorBoard's profiler plugin and Perfetto read.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import socket
 import time
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 
 class Timer:
@@ -37,3 +37,49 @@ class Timer:
             t = self.totals[name]
             lines.append(f"{name:24s} {t:9.3f}s  x{n}  ({t / n * 1e3:8.2f} ms/call)")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(logdir: Optional[str]) -> Iterator[None]:
+    """``torch.profiler`` trace of the block (no-op when logdir is
+    None): host activity, and the CUDA card's kernels and copies when a
+    card is present, written under ``logdir`` as one Chrome trace,
+    ``<host>_<pid>.<ms>.pt.trace.json`` (the name TensorBoard's
+    ``tensorboard_trace_handler`` gives).
+
+    With a card the trace must see it: a PyTorch without CUDA tracing
+    raises before the block runs, and a trace that recorded no device
+    activity (not even the one small kernel launched at its start to
+    check just that) raises after it."""
+    if not logdir:
+        yield
+        return
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError("device_trace: this PyTorch cannot trace the "
+                               "CUDA card (no CUPTI)")
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        if cuda:
+            torch.ones(1, device="cuda").add_(1)  # the card's activity probe
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            logdir, f"{socket.gethostname()}_{os.getpid()}."
+            f"{int(time.time() * 1e3)}.pt.trace.json"))
+    # the profiler's raw events: its parsed ``events()`` would take
+    # seconds on a long session's trace
+    if cuda and not any(e.device_type() == DeviceType.CUDA
+                        for e in prof.profiler.kineto_results.events()):
+        raise RuntimeError("device_trace: the trace recorded no activity on "
+                           "the CUDA card")

@@ -7,7 +7,9 @@ through ``ctypes``.  The build runs at first use, from the sources in
 the checkout only, into ``_build/`` beside this file (git-ignored).
 The library's name carries a hash of the sources and the flags, so an
 edit rebuilds it.  A missing ``nvcc`` or a failed build raises: there
-is no fallback.
+is no fallback.  Threads of one process (the app's jobs) build and
+bind the library once: the first build holds a module lock, and the
+others wait for it and take its result.
 """
 
 from __future__ import annotations
@@ -18,9 +20,9 @@ import os
 import shutil
 import subprocess
 import tempfile
-from functools import lru_cache
+import threading
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -39,6 +41,10 @@ _ENTRY_POINTS = {
     # x, out, orbits, reps, n_orbits, R, G, k, stream
     "fold_class_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
+# held by a build and by the first load: one nvcc run and one bound
+# library per process, whichever threads ask at once
+_LOCK = threading.RLock()
+_LIBRARY: Optional[ctypes.CDLL] = None
 
 
 def _sources() -> List[Path]:
@@ -89,33 +95,40 @@ def build_library() -> Path:
     """Compile the kernels unless a library for these sources exists.
     ``nvcc``'s report (``-Xptxas=-v``: registers, spills) is kept
     beside the library as ``<name>.log``."""
-    out = _library_path()
-    if out.exists():
+    with _LOCK:
+        out = _library_path()
+        if out.exists():
+            return out
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # build in a temporary directory and rename the library, so a
+        # concurrent or cut build never leaves a half-written one under
+        # the final name
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [Path(tmp, src.stem + ".o") for src in _sources()]
+            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                            for s, o in zip(_sources(), objs)])
+            lib = Path(tmp, out.name)
+            log += _run_all([[nvcc, *ARCH, "-shared", "-o", str(lib),
+                              *map(str, objs)]])
+            out.with_suffix(".log").write_text(log)
+            os.replace(lib, out)
         return out
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build in a temporary directory and rename the library, so a
-    # concurrent or cut build never leaves a half-written one under
-    # the final name
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp, src.stem + ".o") for src in _sources()]
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
-                        for s, o in zip(_sources(), objs)])
-        lib = Path(tmp, out.name)
-        log += _run_all([[nvcc, *ARCH, "-shared", "-o", str(lib),
-                          *map(str, objs)]])
-        out.with_suffix(".log").write_text(log)
-        os.replace(lib, out)
-    return out
 
 
-@lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
-    for name, argtypes in _ENTRY_POINTS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.cuda_error_string.argtypes = [ctypes.c_int]
-    lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    """The kernels' library, built at the first call and bound once."""
+    global _LIBRARY
+    if _LIBRARY is not None:
+        return _LIBRARY
+    with _LOCK:
+        if _LIBRARY is None:
+            lib = ctypes.CDLL(str(build_library()))
+            for name, argtypes in _ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            _LIBRARY = lib
+        return _LIBRARY

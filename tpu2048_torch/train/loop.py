@@ -19,8 +19,8 @@ this loop on its share of the env batch; the state's replicated leaves
 the same turns, and only rank 0 writes: checkpoints, the best game, the
 metrics file and the log.
 
-Not ported yet: a profiler trace (``trace_dir=``, ROADMAP.md Queue 1
-item 6).
+``run(trace_dir=...)`` traces the whole session with ``torch.profiler``
+(``obs/profiler.py::device_trace``).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ from ..features.ntuple import get_tuple_set
 from ..obs.jobs import Job
 from ..obs.logging import Logger
 from ..obs.metrics import MetricsWriter
-from ..obs.profiler import Timer
+from ..obs.profiler import Timer, device_trace
 from ..parallel import mesh as pmesh
 from ..store import checkpoint as ckpt
 from ..store.artifacts import ArtifactStore
@@ -367,11 +367,8 @@ class Trainer:
             trace_dir: Optional[str] = None) -> Dict[str, Any]:
         """Train until ``tcfg.episodes`` more episodes completed or the
         job is cancelled; host phases are timed with ``Timer`` and
-        reported in the final log lines."""
-        if trace_dir:
-            raise NotImplementedError(
-                "device traces (torch.profiler) are not ported yet: they "
-                'wait for ROADMAP.md Queue 1 item 6 ("Apps / obs / entry")')
+        reported in the final log lines.  With ``trace_dir`` the whole
+        session runs inside a ``torch.profiler`` trace written there."""
         tcfg = self.tcfg
         timer = self.timer = Timer()
         start_eps = int(self.state.metrics.episodes)
@@ -386,36 +383,39 @@ class Trainer:
                      ) * tcfg.checkpoint_every
         t_global = t_block = time.time()
         steps_done = 0
-        while True:
-            if job is not None and job.should_stop():
-                self.log.add("training cancelled")
-                break
-            with timer.section("train_segment"):
-                self.state = self._segment(self.state)
-            steps_done += tcfg.steps_per_call * tcfg.num_envs
-            with timer.section("metrics_read"):
-                # the one read of the segment waits for the device
-                episodes = int(self.state.metrics.episodes)
-                if registry is not None and job is not None \
-                        and self._is_writer:
-                    registry.heartbeat(job.parent)
-                next_100 = self._drain_history(next_100)
-            if episodes >= next_1000:
-                with timer.section("checkpoint"):
-                    self._report_1000(episodes, time.time() - t_block)
-                    t_block = time.time()
-                    self._maybe_save_best_game()
-                    self.save()
-                next_1000 = (episodes // tcfg.checkpoint_every + 1
-                             ) * tcfg.checkpoint_every
-            if episodes >= target:
-                break
+        with device_trace(trace_dir):
+            while True:
+                if job is not None and job.should_stop():
+                    self.log.add("training cancelled")
+                    break
+                with timer.section("train_segment"):
+                    self.state = self._segment(self.state)
+                steps_done += tcfg.steps_per_call * tcfg.num_envs
+                with timer.section("metrics_read"):
+                    # the one read of the segment waits for the device
+                    episodes = int(self.state.metrics.episodes)
+                    if registry is not None and job is not None \
+                            and self._is_writer:
+                        registry.heartbeat(job.parent)
+                    next_100 = self._drain_history(next_100)
+                if episodes >= next_1000:
+                    with timer.section("checkpoint"):
+                        self._report_1000(episodes, time.time() - t_block)
+                        t_block = time.time()
+                        self._maybe_save_best_game()
+                        self.save()
+                    next_1000 = (episodes // tcfg.checkpoint_every + 1
+                                 ) * tcfg.checkpoint_every
+                if episodes >= target:
+                    break
         total = time.time() - t_global
         sps = steps_done / max(total, 1e-9)
         self.log.add(
             f"Total time = {int(total) // 60} min {int(total) % 60} sec "
             f"({sps / 1e3:.0f}K env-steps/s)")
         self.log.add("timing:\n" + timer.report())
+        if trace_dir:
+            self.log.add(f"device trace written to {trace_dir}")
         self._maybe_save_best_game()
         self.save()
         if self.mesh is not None:
