@@ -138,11 +138,32 @@ Phases, one line of output each (the kernel phases one per check):
      one kernel event per launch of each wrapper (and ``grad_class``'s
      fill) among the step's other kernels; its bytes, events, kernel
      events per step and the kernels' histogram by device time, and
-     env-steps/s beside an untraced run's, as a reading.
+     env-steps/s beside an untraced run's, as a reading;
+ 18. model_axis: the mesh's model axis.  First the tuple-range launches
+     of n=4's split class (tuples 0-8 and 9-16 of a (17, 256, 256)
+     table): ``eval_class`` bitwise against its ordered sum and
+     ``grad_class`` checked as in phase 5, both timed.  Then two ranks of
+     this script (``--model-rank``) on the one card, over gloo
+     (``distributed.initialize(backend="gloo")``), on a
+     ``MeshConfig(data=1, model=2)`` mesh: (a) one step of 8192 envs at
+     n=6 (the 16^4 class whole on rank 0) and at n=4 (the class split
+     9/8 by tuples), from one CPU-made state with dyadic weights and the
+     same draws, the tables reassembled by ``host_full`` and held
+     against the unmeshed CPU step as in phase 10; (b) ``Trainer.run``
+     of ``AgentConfig(n=6)`` at the shipped width for
+     MODEL_AXIS_SEGMENTS segments: every kernel launched on every step
+     by the rank that holds the class, none by the other; the ranks'
+     replicated leaves bitwise equal; each rank's shard, peak allocated
+     memory and collectives (held against the step's shapes and the
+     save's reads); env-steps/s as a reading; the checkpoint (the whole
+     tables) loads on the card, plays 256 games, and its best game
+     replays.  With two or more cards the same on two NCCL ranks; with
+     one the line says that this was not run.
 
 Then a JSON line of the kernels of the paths (name, route,
 source, the TPU kernel it replaces, its launches in the serve, train,
-search, train_variant, flagship, n7, mesh and apps runs, its largest error
+search, train_variant, flagship, n7, mesh, apps and model_axis runs (the
+last the two ranks' sum), its largest error
 against the plain
 version, its, the plain version's and the library call's time in ms,
 and its bound:
@@ -153,7 +174,9 @@ Any failure raises and exits non-zero; without a CUDA card the script
 exits 1 before any phase.  It imports nothing of jax or ``tpu2048``.
 
 ``python3 chip_smoke.py --rank <rendezvous> <ranks> <rank> <device>
-<out>`` is one rank of phase 15, started by the script itself.
+<out>`` is one rank of phase 15, and ``python3 chip_smoke.py
+--model-rank <rendezvous> <rank> <backend> <out>`` one of phase 18,
+started by the script itself.
 """
 
 from __future__ import annotations
@@ -179,6 +202,8 @@ FLAGSHIP_SEGMENTS = 8  # n=6 at the shipped width
 N7_SEGMENTS = 2
 RANKS_ENVS = 64  # phase 15's width: small enough that no argmax flips
 RANKS_TIMEOUT = 300  # seconds for phase 15's ranks, then they are killed
+MODEL_AXIS_SEGMENTS = 4  # phase 18's n=6 run on two ranks
+MODEL_AXIS_TIMEOUT = 300  # seconds for phase 18's ranks, then they are killed
 APP_EPISODES = 2000  # phase 16's train job: a few segments at 8192 envs
 APP_TEST_GAMES = 1000
 APP_WATCH_FRAMES = 10
@@ -373,7 +398,8 @@ def _eval_time(tables, hi, lo, precision, inner=20) -> dict:
            "bound_ms": _bound_ms(nbytes), "bytes": nbytes,
            "bound_share": _bound_ms(nbytes) / k[0]}
     _line("kernel_time", kernel="eval_class", **row,
-          earlier_ms=EARLIER_MS.get(("eval_class", precision, b)),
+          earlier_ms=EARLIER_MS.get(("eval_class", precision, b))
+          if tuple(tables.shape) == SHAPES[0] else None,
           kernel_ms_median_min_max=list(k), plain_ms_median_min_max=list(p),
           library="embedding_bag(mode='sum')",
           library_ms_median_min_max=list(q))
@@ -850,6 +876,13 @@ def _launch_counts() -> dict:
         kernels.eval_class, kernels.grad_class, kernels.fold_class)}
 
 
+def _as_tensors(x):
+    """A (nested) tuple of numpy arrays as one of CPU tensors."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x)
+    return type(x)(*(_as_tensors(v) for v in x))
+
+
 def _card_step_against_cpu(acfg, tcfg, segment: bool = False,
                            mesh=None) -> tuple:
     """One train step (or one segment) of ``acfg`` through the kernels on
@@ -860,25 +893,41 @@ def _card_step_against_cpu(acfg, tcfg, segment: bool = False,
     step updates nothing, so that every value the actor reads is exact
     in f32 on both sides; the staged recorder rows bitwise.  Returns
     (the card's state, the CPU's, the summation-order bound of each
-    table entry (``_order_slack``), the card's launches per kernel)."""
+    table entry (``_order_slack``), the card's launches per kernel).
+
+    Under a mesh's model axis the start state is cut to this rank's
+    shard (``shard_td_state``) and the card's state read back whole
+    (``host_full_state``, a collective); every rank of the mesh calls,
+    and only rank 0 steps on the CPU: the others get (the card's state,
+    None, None, their launches).  There the warm steps run on the CPU,
+    so that every rank starts from the same bits."""
     from tpu2048_torch.agent import td
     from tpu2048_torch.draws import NumpyDraws
     from tpu2048_torch.features.ntuple import get_tuple_set
     from tpu2048_torch.features.symmetry import symmetrize_table
+    from tpu2048_torch.parallel import mesh as pmesh
 
     ts = get_tuple_set(acfg.n)
-    st = td.init_td_state(ts, acfg, tcfg, NumpyDraws(0, "cuda"), "cuda")
+    sharded = mesh is not None and mesh.model > 1
+    warm_on = "cpu" if sharded else "cuda"
+    st = td.init_td_state(ts, acfg, tcfg, NumpyDraws(0, warm_on), warm_on)
     if not segment:
-        warm = td.make_train_step(ts, acfg, tcfg, NumpyDraws(1, "cuda"))
+        warm = td.make_train_step(ts, acfg, tcfg, NumpyDraws(1, warm_on))
         st, _ = warm(warm(st)[0])  # two steps: valid rows and TC sums
     st = _to(st, "cpu")._replace(weights=torch.from_numpy(_dyadic(ts.total,
                                                                    2)))
     make = td.make_train_segment if segment else td.make_train_step
     before = _launch_counts()
     card = make(ts, acfg, tcfg, NumpyDraws(3, "cuda"), mesh=mesh)(
-        _to(st, "cuda"))
+        pmesh.shard_td_state(st, mesh, ts) if sharded else _to(st, "cuda"))
     torch.cuda.synchronize()
     launches = {k: v - before[k] for k, v in _launch_counts().items()}
+    if sharded:
+        whole = _as_tensors(pmesh.host_full_state(
+            card if segment else card[0], mesh))
+        card = whole if segment else (whole, card[1])
+        if mesh.rank != 0:
+            return whole, None, None, launches
     if segment:
         # the segment's first step (which updates nothing) alone, for
         # the rows its second step learns from
@@ -1669,6 +1718,296 @@ def phase_two_ranks() -> None:
               why=f"{cards} card here: NCCL takes one rank per device")
 
 
+def _model_axis_launches(shard, feat0: int, g: int, steps: int) -> dict:
+    """The shipped learner's launches on a rank in ``steps`` steps under
+    a model axis: every kernel on every step where the rank holds tuples
+    of the 16^4 class, none where it holds none."""
+    a, b = shard.tuples(feat0, g)
+    return _default_step_launches(steps) if a < b else dict.fromkeys(
+        ("eval_class", "grad_class", "fold_class"), 0)
+
+
+def _model_step_collectives(ts, tcfg) -> dict:
+    """Phase 18's model-axis collectives per step of the shipped learner
+    on (1, model) where no class is split (n >= 5), from the step's
+    shapes: one all-reduce of the selection's pieces (one value per
+    16^2..16^4 class and per gather feature, for each of the 4N
+    afterstates) and one of the bootstrap's (one per class, N rows)."""
+    from tpu2048_torch.ops import onehot as oh
+
+    classes = oh.build_table_classes(ts)
+    n, c, k = tcfg.num_envs, len(classes.matmul), len(classes.gather_feats)
+    return {"model_all_reduce": 2, "model_all_gather": 0,
+            "model_bytes": (c + k) * 4 * n * 4 + c * n * 4}
+
+
+def _model_rank_main(rendezvous: str, rank: int, backend: str,
+                     out: str) -> int:
+    """One rank of phase 18 on a (1, 2) mesh: the step checks at n=6
+    and n=4, then ``Trainer.run`` of ``AgentConfig(n=6)`` at the shipped
+    width; writes its readings to ``<out>/rank<r>.json``."""
+    from tpu2048_torch.config import AgentConfig, MeshConfig, TrainConfig
+    from tpu2048_torch.features.ntuple import get_tuple_set
+    from tpu2048_torch.parallel import distributed
+    from tpu2048_torch.store.artifacts import LocalStore
+    from tpu2048_torch.store.checkpoint import load_agent, load_agent_dense
+    from tpu2048_torch.train.loop import Trainer
+    from tpu2048_torch.train.trial import trial
+
+    torch.set_num_threads(4)
+    if not distributed.initialize(rendezvous, 2, rank, backend=backend):
+        raise AssertionError("distributed.initialize returned False")
+    if torch.distributed.get_backend() != backend:
+        raise AssertionError(f"the group runs {torch.distributed.get_backend()}")
+    mesh = distributed.global_mesh(MeshConfig(data=1, model=2))
+    if (mesh.device.type != "cuda" or mesh.model_rank != rank
+            or mesh.staged != (backend == "gloo")):
+        raise AssertionError(f"rank {rank}: a mesh on {mesh.device}, model "
+                             f"rank {mesh.model_rank}, staged {mesh.staged}")
+    res = {"rank": rank, "backend": backend, "device": str(mesh.device),
+           "steps": {}}
+
+    # (a) one step of 8192 envs against the unmeshed CPU step
+    for n in (6, 4):
+        t0 = time.perf_counter()
+        acfg = AgentConfig(n=n, table_ops="pallas")
+        ts = get_tuple_set(n)
+        shard = mesh.table_shard(ts)
+        tcfg = TrainConfig(num_envs=TRAIN_B)
+        mesh.counts.update(dict.fromkeys(mesh.counts, 0))
+        card, plain, slack, launches = _card_step_against_cpu(
+            acfg, tcfg, mesh=mesh)
+        if launches != _model_axis_launches(shard, 0, 17, 1):
+            raise AssertionError(f"rank {rank}, n={n}: launched {launches}")
+        step = {"n": n, "shard": [shard.lo, shard.hi],
+                "tuples": list(shard.tuples(0, 17)),
+                "class_split": shard.split(0, 17), "launches": launches,
+                "seconds": time.perf_counter() - t0}
+        if plain is not None:
+            step["max_abs_err"] = _hold_states(
+                card, plain, f"model axis n={n} step", slack)
+        res["steps"][n] = step
+        del card, plain, slack
+    mesh.barrier()
+
+    # (b) Trainer.run of the n=6 defaults at the shipped width
+    acfg = AgentConfig(n=6)
+    ts = get_tuple_set(6)
+    shard = mesh.table_shard(ts)
+    tcfg = TrainConfig(episodes=10**9, checkpoint_every=10**9)
+    store = LocalStore(os.path.join(out, "store"))
+    name = "smoke_model_axis"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(name, acfg, tcfg, store=store, logger=_quiet(), mesh=mesh)
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    mesh.counts.update(dict.fromkeys(mesh.counts, 0))
+    t0 = time.perf_counter()
+    got = tr.run(job=_StopAfter(MODEL_AXIS_SEGMENTS))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, counts = _launch_counts(), dict(mesh.counts)
+    steps = MODEL_AXIS_SEGMENTS * tcfg.steps_per_call
+    if launches != _model_axis_launches(shard, 0, 17, steps):
+        raise AssertionError(f"rank {rank}: the run launched {launches}")
+    st = tr.state
+    if st.weights.shape != (shard.size,) or st.opt_a.shape != (shard.size,):
+        raise AssertionError(f"rank {rank} holds {tuple(st.weights.shape)} "
+                             f"entries, not its shard's {shard.size}")
+    if not bool(torch.isfinite(st.weights).all()) or got["episodes"] <= 0:
+        raise AssertionError(f"rank {rank}: non-finite weights or no episode")
+    # the two ranks' replicated leaves (all but the tables) hold the same
+    # bits: one data rank, so the env leaves are replicas too (the rings'
+    # trash slot and the logs' spill column aside: they take the writes
+    # of lanes that do not record, in no set order on the card)
+    differ = []
+    for f, x in _flat(st._replace(weights=st.alpha, opt_e=st.alpha,
+                                  opt_a=st.alpha)).items():
+        if f in ("recorder.moves", "recorder.spawns"):
+            x = x[:, :-1]
+        elif f in ("metrics.score_ring", "metrics.tile_ring"):
+            x = x[:-1]
+        t = torch.from_numpy(np.ascontiguousarray(x)).reshape(-1)
+        t = t.view(torch.int32) if t.dtype == torch.float32 else t
+        rows = mesh.all_gather(t.to(mesh.device)[None], "model")
+        if not bool((rows == rows[0]).all()):
+            differ.append(f)
+    if differ:
+        raise AssertionError(f"the ranks' replicas differ in {differ}")
+    per_step = _model_step_collectives(ts, tcfg)
+    res["run"] = {
+        "shard": [shard.lo, shard.hi], "shard_entries": shard.size,
+        "tables_bytes": 3 * 4 * shard.size, "launches": launches,
+        "collectives": counts, "collectives_per_step": per_step,
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "init_peak_allocated_bytes": init_peak,
+        "env_steps_per_s": got["env_steps_per_sec"], "seconds": seconds,
+        "episodes": got["episodes"], "top_score": got["top_score"]}
+    mesh.barrier()  # every rank has read the counts and the state
+    if rank == 0:
+        # the checkpoint holds the whole tables; this rank's shard of
+        # them is its state's, and the agent plays on the card
+        acfg2, w_np, meta = load_agent(store, name)
+        if (acfg2 != acfg or w_np.shape != (ts.total,)
+                or not np.array_equal(w_np[shard.lo: shard.hi],
+                                      st.weights.cpu().numpy())
+                or meta["extras"]["opt_a"].shape != (ts.total,)):
+            raise AssertionError("the model-axis checkpoint does not load "
+                                 "as saved")
+        del w_np, meta
+        _replays(store, f"best_of_{name}", got["top_score"])
+        _, w, _ = load_agent_dense(store, name, device="cuda")
+        games = trial(ts, w, num=256, seed=1)
+        if games.odometers.min() <= 0:
+            raise AssertionError("the model-axis agent did not play")
+        res["run"]["trial_avg_score"] = float(games.scores.mean())
+        del w
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+    print(f"MODEL_RANK_OK {rank}", flush=True)
+    return 0
+
+
+def _run_model_ranks(backend: str) -> list:
+    """Start phase 18's two ranks of this script on ``backend``, wait
+    for them (killed at MODEL_AXIS_TIMEOUT), and return each rank's
+    readings."""
+    here = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, here, "--model-rank", f"file://{tmp}/rendezvous",
+             str(r), backend, tmp],
+            cwd=os.path.dirname(here), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        deadline = time.monotonic() + MODEL_AXIS_TIMEOUT
+        try:
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0 or f"MODEL_RANK_OK {r}" not in log:
+                raise AssertionError(f"model-axis rank {r} on {backend} "
+                                     f"failed:\n{log}")
+        out = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+        return out
+
+
+def _model_axis_kernel_times(kstats: dict) -> None:
+    """Phase 18's tuple-range launches at n=4's split (tuples 0-8 on rank
+    0, 9-16 on rank 1): ``eval_class`` on the range's block of a whole
+    (17, 256, 256) table, its (hi, lo) columns made for the range alone,
+    bitwise against the ordered sum and timed as in phase 3 (selection
+    and bootstrap); ``grad_class`` on the range's columns, checked as in
+    phase 5 and timed."""
+    from tpu2048_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    tables, hi, lo = _inputs(17, 256, 256, SERVE_B, seed=18, dev=dev)
+    for a, b in ((0, 9), (9, 17)):
+        block = tables[a:b]  # a view into the whole class, contiguous
+        for batch, precision in ((SERVE_B, "bf16"), (TRAIN_B, "bf16x2")):
+            h_r = hi[:batch, a:b].contiguous()
+            l_r = lo[:batch, a:b].contiguous()
+            got = kernels.eval_class(block, h_r, l_r, precision)
+            if not torch.equal(got, kernels.eval_class_ordered(
+                    block, h_r, l_r, precision)):
+                raise AssertionError(f"eval_class on tuples {a}-{b - 1} is "
+                                     "not the ordered sum")
+            row = _eval_time(block, h_r, l_r, precision)
+            kstats["eval_class"]["instances"].append(
+                {**row, "case": f"model_axis tuples {a}-{b - 1}"})
+        args = _grad_inputs(b - a, 256, 256, TRAIN_B, seed=18 + a, dev=dev)
+        _grad_check(*args, 256, 256, f"model axis tuples {a}-{b - 1}")
+        row = _grad_time(f"model_axis tuples {a}-{b - 1}", args, 256, 256)
+        kstats["grad_class"]["instances"].append(row)
+
+
+def phase_model_axis(kstats: dict) -> dict:
+    """Phase 18: the mesh's model axis, two ranks on one card over gloo
+    (and on two cards over NCCL where there are two).  Returns the
+    kernels' launches of the gloo ranks' n=6 runs, summed."""
+    from tpu2048_torch.features.ntuple import get_tuple_set
+    from tpu2048_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    _model_axis_kernel_times(kstats)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    ts = get_tuple_set(6)
+    total = {"eval_class": 0, "grad_class": 0, "fold_class": 0}
+    cards = torch.cuda.device_count()
+    for backend in ("gloo", "nccl"):
+        if backend == "nccl" and cards < 2:
+            _line("model_axis", backend="nccl", ranks=2, run=False,
+                  why=f"{cards} card here: NCCL takes one rank per device")
+            continue
+        ranks = _run_model_ranks(backend)
+        for r in ranks:
+            for n, step in sorted(r["steps"].items()):
+                _line("model_axis_step_check", backend=backend,
+                      rank=r["rank"], device=r["device"], envs=TRAIN_B,
+                      integers="bitwise against the unmeshed CPU step",
+                      tolerance="2^-17 * max|table| + the entry's "
+                      "summation-order bound", **step)
+        run = [r["run"] for r in ranks]
+        steps = MODEL_AXIS_SEGMENTS * 64
+        sizes = [hi - lo for lo, hi in (x["shard"] for x in run)]
+        if sum(sizes) != ts.total or run[0]["shard"][1] != run[1]["shard"][0]:
+            raise AssertionError(f"the shards {[x['shard'] for x in run]} do "
+                                 "not cover the table once")
+        # the counts of the run: its steps, then the save's reads of the
+        # three tables (the shard sizes, then the shards)
+        save = {"model_all_gather": 6,
+                "model_bytes": 3 * (2 * 8 + 2 * max(sizes) * 4)}
+        for x in run:
+            want = {k: 0 for k in x["collectives"]}
+            for k, v in x["collectives_per_step"].items():
+                want[k] = steps * v + save.get(k, 0)
+            if x["collectives"] != want:
+                raise AssertionError(f"a rank ran {x['collectives']}, "
+                                     f"expected {want}")
+        if backend == "gloo":
+            for x in run:
+                for k, v in x["launches"].items():
+                    total[k] += v
+        _line("model_axis", backend=backend, ranks=2, mesh=[1, 2],
+              where=("one card, the collectives staged through the host"
+                     if backend == "gloo" else f"{cards} cards"),
+              n=6, envs=TRAIN_B, steps_per_call=64,
+              segments=MODEL_AXIS_SEGMENTS, weights=int(ts.total),
+              shards=[x["shard"] for x in run],
+              shard_entries=[x["shard_entries"] for x in run],
+              launches=[x["launches"] for x in run],
+              launches_per_step=[{k: v / steps for k, v in
+                                  x["launches"].items()} for x in run],
+              collectives=[x["collectives"] for x in run],
+              collectives_per_step=[x["collectives_per_step"] for x in run],
+              replicas="bitwise equal",
+              peak_allocated_bytes=[x["peak_allocated_bytes"] for x in run],
+              init_peak_allocated_bytes=[x["init_peak_allocated_bytes"]
+                                         for x in run],
+              env_steps_per_s=[x["env_steps_per_s"] for x in run],
+              reading="env-steps/s of two ranks sharing one card: a reading",
+              episodes=run[0]["episodes"], top_score=run[0]["top_score"],
+              best_game_replays=True,
+              trial_avg_score=run[0].get("trial_avg_score"),
+              seconds=time.perf_counter() - t0)
+    return total
+
+
 def _http(port: int, path: str, body=None):
     """GET ``path`` (or POST ``body`` to it) on the local app server;
     the JSON answer."""
@@ -1969,6 +2308,7 @@ def main() -> int:
     phase_two_ranks()
     apps = phase_apps()
     phase_trace()
+    model_axis = phase_model_axis(kstats)
     loaded = sorted(m for m in sys.modules if m == "jax" or m == "tpu2048"
                     or m.startswith(("jax.", "tpu2048.")))
     if loaded:
@@ -1984,13 +2324,15 @@ def main() -> int:
         "source": f"tpu2048_torch/ops/csrc/{k}.cu",
         "replaces": replaces[k],
         "launches": train[k] + variant[k] + flagship[k] + n7[k] + meshed[k]
-        + apps[k] + (serve + search if k == "eval_class" else 0),
+        + apps[k] + model_axis[k] + (serve + search if k == "eval_class"
+                                     else 0),
         "launches_by_path": {"serve": serve if k == "eval_class" else 0,
                              "train": train[k],
                              "search": search if k == "eval_class" else 0,
                              "train_variant": variant[k],
                              "flagship": flagship[k], "n7": n7[k],
-                             "mesh": meshed[k], "apps": apps[k]},
+                             "mesh": meshed[k], "apps": apps[k],
+                             "model_axis": model_axis[k]},
         "bound_by": "bytes",
         # the same two readings under this round's names
         "bound_us": 1e3 * kstats[k]["bound_ms"],
@@ -2007,4 +2349,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(_rank_main(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
                             sys.argv[5], sys.argv[6]))
+    if sys.argv[1:2] == ["--model-rank"]:
+        sys.exit(_model_rank_main(sys.argv[2], int(sys.argv[3]), sys.argv[4],
+                                  sys.argv[5]))
     sys.exit(main())

@@ -11,11 +11,20 @@ Usage:
       segment <job.json>
   python tests/_torch_dist_worker.py <rendezvous> <nprocs> <rank> \
       trainer <store_dir>
+  python tests/_torch_dist_worker.py <rendezvous> <nprocs> <rank> \
+      model_trainer <job.json>,<model>
+  python tests/_torch_dist_worker.py <rendezvous> <nprocs> <rank> \
+      card_model <n>
   python tests/_torch_dist_worker.py fault <store_dir> <fresh|resume>
 
-``segment`` runs a job (``run_job``) on the mesh and rank 0 writes the
-global state after it (``<out>/state.npz``); ``trainer`` runs the full
-``Trainer`` loop, a checkpoint and a resume in every rank; ``fault``
+``segment`` runs a job (``run_job``) on the mesh, a (data, model) mesh
+when the job names its ``model`` axis, and rank 0 writes the global
+state after it (``<out>/state.npz``); ``trainer`` runs the full
+``Trainer`` loop, a checkpoint and a resume in every rank;
+``model_trainer`` runs a ``Trainer`` job (``train_job``) on a mesh of
+``nprocs / model`` x ``model`` ranks; ``card_model`` runs the
+model-axis checks on ranks that share one CUDA card (``run_card_model``);
+``fault``
 trains under a lease until killed, or resumes.  Each prints
 ``<MODE>_OK <rank>`` on success.
 """
@@ -184,7 +193,7 @@ def run_job(job: dict, mesh=None) -> dict:
             state = state_from_flat({k: torch.from_numpy(v) for k, v
                                      in flat_state(state).items()})
         if mesh is not None:
-            state = pmesh.shard_td_state(state, mesh)
+            state = pmesh.shard_td_state(state, mesh, ts)
     elif mesh is not None:
         state = pmesh.init_sharded_td_state(ts, acfg, tcfg, mesh, draws)
     else:
@@ -212,19 +221,26 @@ def run_job(job: dict, mesh=None) -> dict:
 
 
 def _assert_replicas_equal(mesh, state) -> None:
-    """Every replicated leaf of ``state`` holds the same bits on every
-    rank."""
+    """Every leaf of ``state`` holds the same bits on every rank that
+    holds a replica of it: a replicated leaf on all ranks, a shard of
+    the tables on the ranks of one data group, an env range on the
+    ranks of one model group."""
     from tpu2048_torch.parallel import mesh as pmesh
 
     specs = flat_state(pmesh.td_state_shardings(mesh))
+    axes = {pmesh.REPLICATED: ("data", "model"), pmesh.MODEL: ("data",),
+            pmesh.DATA: ("model",), pmesh.RECORD: ("model",)}
     for name, x in flat_state(state).items():
-        if name.startswith("env.") or specs[name] != pmesh.REPLICATED:
-            continue
+        spec = pmesh.DATA if name.startswith("env.") else str(specs[name])
         t = torch.from_numpy(np.ascontiguousarray(x)).reshape(-1)
         if t.dtype == torch.float32:
             t = t.view(torch.int32)  # compare bits: NaN equals NaN
-        rows = mesh.all_gather(t[None])
-        assert bool((rows == rows[0]).all()), f"replicas differ in {name}"
+        for axis in axes[spec]:
+            if spec != pmesh.REPLICATED and mesh.groups[axis] is None:
+                continue
+            rows = mesh.all_gather(t[None], axis)
+            assert bool((rows == rows[0]).all()), \
+                f"replicas differ in {name} over the {axis} axis"
 
 
 def run_segment(mesh, job_path: str) -> None:
@@ -275,6 +291,111 @@ def run_trainer(mesh, store_dir: str) -> None:
     out2 = tr2.run()
     assert out2["episodes"] >= eps1 + tcfg.episodes, out2["episodes"]
     _assert_replicas_equal(mesh, tr2.state)
+
+
+class StopAfter:
+    """A job that stops a ``Trainer.run`` after ``segments`` segments."""
+
+    parent = None
+
+    def __init__(self, segments: int):
+        self.left = segments
+
+    def should_stop(self) -> bool:
+        self.left -= 1
+        return self.left < 0
+
+
+def train_job(job: dict, mesh=None):
+    """``Trainer.run`` of ``job["segments"]`` segments of agent
+    ``job["name"]`` in the store at ``job["store"]`` (resumed when
+    ``job["resume"]``), on ``mesh`` or alone on the CPU; its checkpoint
+    is saved at the end.  Returns the trainer."""
+    from tpu2048_torch.config import AgentConfig, TrainConfig
+    from tpu2048_torch.obs.logging import Logger
+    from tpu2048_torch.store.artifacts import LocalStore
+    from tpu2048_torch.train.loop import Trainer
+
+    acfg, tcfg = AgentConfig(**job["acfg"]), TrainConfig(**job["tcfg"])
+    tr = Trainer(job["name"], acfg, tcfg, store=LocalStore(job["store"]),
+                 logger=Logger(console=False), mesh=mesh,
+                 resume=job.get("resume", False),
+                 device=None if mesh is not None else "cpu")
+    tr.run(job=StopAfter(job["segments"]))
+    return tr
+
+
+def run_model_trainer(mesh, arg: str) -> None:
+    """``train_job`` on the mesh (``arg`` is ``<job.json>,<model>``):
+    each rank holds its shard of the tables, the replicas agree, and
+    rank 0 has saved the whole tables."""
+    from tpu2048_torch.parallel import mesh as pmesh
+
+    with open(arg.split(",")[0]) as f:
+        job = json.load(f)
+    tr = train_job(job, mesh)
+    ts = tr.ts
+    shard = mesh.table_shard(ts)
+    assert tr.state.weights.shape == (shard.size,), tr.state.weights.shape
+    if tr.acfg.optimizer == "tc":
+        assert tr.state.opt_e.shape == tr.state.opt_a.shape == (shard.size,)
+    _assert_replicas_equal(mesh, tr.state)
+    # the whole tables, read by every rank together
+    full = pmesh.host_full(tr.state.weights, mesh, pmesh.MODEL)
+    assert full.shape == (ts.total,)
+    np.testing.assert_array_equal(full[shard.lo: shard.hi],
+                                  tr.state.weights.numpy())
+
+
+def run_card_model(mesh, arg: str) -> None:
+    """At n=``arg`` on a (1, ranks) mesh of gloo ranks sharing one card:
+    one train step through the kernels against the unmeshed CPU step
+    (``chip_smoke._card_step_against_cpu``), and this rank's tuple
+    range of the 16^4 class through ``eval_class`` and ``grad_class``
+    against their plain versions."""
+    from chip_smoke import _card_step_against_cpu, _hold_states
+
+    from tpu2048_torch.config import AgentConfig, TrainConfig
+    from tpu2048_torch.features.ntuple import feature_indices, get_tuple_set
+    from tpu2048_torch.ops import kernels
+    from tpu2048_torch.ops import onehot as oh
+
+    n = int(arg)
+    ts = get_tuple_set(n)
+    c = oh.build_table_classes(ts).matmul[-1]  # the 16^4 class
+    shard = mesh.table_shard(ts)
+    a, b = shard.tuples(c.feat0, c.g)
+    assert shard.split(c.feat0, c.g) and a < b, (a, b)
+    tcfg = TrainConfig(num_envs=1024, ring_size=256, max_record_steps=256)
+    card, plain, slack, launches = _card_step_against_cpu(
+        AgentConfig(n=n, table_ops="pallas"), tcfg, mesh=mesh)
+    if plain is not None:
+        _hold_states(card, plain, f"model axis n={n} step", slack)
+    assert launches == {"eval_class": 2, "grad_class": 1, "fold_class": 1}
+    # the split class's pair is gathered whole for the fold
+    assert mesh.counts["model_all_gather"] >= 1
+    dev = mesh.device
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(mesh.rank)
+    full = torch.randn(ts.total, generator=gen).to(dev)
+    hl = c.h * c.l
+    block = full[c.start + a * hl: c.start + b * hl].view(b - a, c.h, c.l)
+    boards = torch.randint(0, 12, (4096, 16), generator=gen).to(dev)
+    idx = feature_indices(ts, boards)
+    hi, lo = oh._hi_lo(ts, idx, c, a, b)
+    for precision in ("bf16", "bf16x2"):
+        got = kernels.eval_class(block, hi, lo, precision)
+        assert torch.equal(got, kernels.eval_class_ordered(
+            block, hi, lo, precision)), precision
+    dw = torch.randn(4096, generator=gen).to(dev)
+    valid = (torch.rand(4096, generator=gen) < 0.5).to(dev)
+    pair = kernels.grad_class(hi, lo, dw, valid, c.h, c.l)
+    want = kernels.grad_class_reference(hi, lo, dw, valid, c.h, c.l)
+    assert pair.shape == (2, b - a, c.h, c.l)
+    assert torch.equal(pair[1], want[1])
+    mass = kernels.grad_class_reference(hi, lo, dw.abs(), valid, c.h, c.l)[0]
+    assert bool(((pair[0] - want[0]).abs()
+                 <= 2.0**-23 * want[1] * mass).all())
 
 
 def run_fault(store_dir: str, mode: str) -> None:
@@ -329,16 +450,35 @@ def main() -> None:
     from tpu2048_torch.config import MeshConfig
     from tpu2048_torch.parallel import distributed
 
+    model = 1
+    if mode == "segment":
+        with open(arg) as f:
+            model = json.load(f).get("model", 1)
+    elif mode == "model_trainer":
+        model = int(arg.split(",")[1])
+    elif mode == "card_model":
+        model = nprocs
+    # the card's ranks share its one device over gloo
+    device = "cuda" if mode == "card_model" else "cpu"
     ok = distributed.initialize(coordinator_address=rendezvous,
                                 num_processes=nprocs, process_id=rank,
-                                device="cpu")
+                                device=device, backend="gloo")
     assert ok, "distributed.initialize returned False with explicit args"
     assert distributed.initialize() is True  # safe to call again
-    sl = distributed.process_env_slice(8 * nprocs)
-    assert sl == slice(rank * 8, (rank + 1) * 8), sl
-    mesh = distributed.global_mesh(MeshConfig(data=nprocs, model=1))
-    assert (mesh.rank, mesh.data, mesh.device.type) == (rank, nprocs, "cpu")
-    {"segment": run_segment, "trainer": run_trainer}[mode](mesh, arg)
+    data = nprocs // model
+    mesh = distributed.global_mesh(MeshConfig(data=data, model=model))
+    assert (mesh.rank, mesh.data, mesh.model, mesh.device.type) == (
+        rank, data, model, device)
+    assert mesh.staged == (device == "cuda")
+    assert (mesh.data_rank, mesh.model_rank) == divmod(rank, model)
+    if model == 1:
+        sl = distributed.process_env_slice(8 * nprocs)
+        assert sl == slice(rank * 8, (rank + 1) * 8), sl
+    assert mesh.env_slice(8 * data) == slice(mesh.data_rank * 8,
+                                             (mesh.data_rank + 1) * 8)
+    {"segment": run_segment, "trainer": run_trainer,
+     "model_trainer": run_model_trainer,
+     "card_model": run_card_model}[mode](mesh, arg)
     _assert_no_jax()
     torch.distributed.destroy_process_group()
     print(f"{mode.upper()}_OK {rank}", flush=True)

@@ -533,3 +533,17 @@ def test_device_trace_records_the_cards_kernels(tmp_path):
     names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
              if e.get("cat") == "kernel"]
     assert sum("eval_class_kernel" in n for n in names) == 1, names
+
+
+def test_model_axis_two_gloo_ranks_on_one_card(tmp_path):
+    """Two ranks of a (1, 2) mesh share the card over gloo at n=4, where
+    the 16^4 class is split 9/8 by tuples: one train step of 1024 envs
+    against the unmeshed CPU step (integers bitwise, the tables read
+    back whole within 2^-17 of max plus each entry's summation-order
+    bound), and each rank's tuple range through ``eval_class`` (bitwise
+    its ordered sum) and ``grad_class`` (hits bitwise, dsum within
+    hits * 2^-23 * sum |dw|) against their plain versions."""
+    needs_card()
+    from _torch_dist_worker import run_workers
+
+    run_workers(tmp_path, 2, "card_model", "4", timeout=300)

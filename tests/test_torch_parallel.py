@@ -306,8 +306,22 @@ def test_initialize_without_a_coordinator_is_a_noop(monkeypatch):
 
 
 def test_model_axis_and_foreign_sizes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        pmesh.make_mesh(MeshConfig(data=1, model=2), device="cpu")
+    # data * model must be the number of processes up (here one)
+    for cfg in (MeshConfig(data=1, model=2), MeshConfig(data=2, model=2)):
+        with pytest.raises(ValueError, match="one process drives one device"):
+            pmesh.make_mesh(cfg, device="cpu")
+    # a model axis of a process without a group: its collectives return
+    # their input, and it counts the model axis apart
+    mesh = pmesh.Mesh(1, 2, 1, torch.device("cpu"))
+    assert (mesh.data_rank, mesh.model_rank) == (0, 1)
+    x = torch.arange(4.0)
+    for axis in ("data", "model"):
+        assert mesh.all_reduce(x, axis=axis) is x
+        assert mesh.all_gather(x, axis=axis) is x
+    assert set(mesh.counts) == {"all_reduce", "all_gather", "bytes",
+                                "model_all_reduce", "model_all_gather",
+                                "model_bytes"}
+    assert not any(mesh.counts.values())
     with pytest.raises(ValueError, match="one process drives one device"):
         pmesh.make_mesh(MeshConfig(data=2, model=1), device="cpu")
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -338,7 +352,7 @@ def test_shard_td_state_cuts_this_ranks_share(rank, rows):
     full = td.init_td_state(ts, acfg, tcfg, NumpyDraws(1, "cpu"), "cpu")
     mesh = pmesh.Mesh(4, 1, rank, torch.device("cpu"))
     assert mesh.env_slice(16) == slice(4 * rank, 4 * rank + 4)
-    part = pmesh.shard_td_state(full, mesh)
+    part = pmesh.shard_td_state(full, mesh, ts)
     specs = flat_state(pmesh.td_state_shardings(mesh, "codes"))
     whole, cut = flat_state(full), flat_state(part)
     assert set(specs) == set(whole)

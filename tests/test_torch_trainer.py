@@ -184,15 +184,21 @@ def test_trainer_stops_on_cancel():
 @pytest.mark.parametrize("what", ["mesh", "trace_dir"])
 def test_unported_trainer_options_raise(what, tmp_path):
     if what == "mesh":
-        # the data axis is ported; the model axis still raises
+        # both axes are ported: a model axis needs its processes, and a
+        # trainer on one holds its shard of the table
         from tpu2048_torch.config import MeshConfig
-        from tpu2048_torch.parallel.mesh import make_mesh
+        from tpu2048_torch.parallel.mesh import Mesh, make_mesh
 
         mesh = make_mesh(MeshConfig(data=1, model=1), device="cpu")
         tr = Trainer("x", ACFG, TCFG, logger=_quiet(), mesh=mesh)
         assert tr.device.type == "cpu" and tr.mesh is mesh
-        with pytest.raises(NotImplementedError, match="Queue 1"):
+        with pytest.raises(ValueError, match="needs 2 processes"):
             make_mesh(MeshConfig(data=1, model=2), device="cpu")
+        mesh = Mesh(1, 2, 1, torch.device("cpu"))
+        tr = Trainer("x", ACFG, TCFG, logger=_quiet(), mesh=mesh)
+        shard = mesh.table_shard(tr.ts)
+        assert tr.state.weights.shape == (shard.size,) == (
+            tr.ts.total - shard.lo,)
     else:
         # ported: a session cancelled before its first segment still
         # writes its (host-only, on the CPU) trace and says where

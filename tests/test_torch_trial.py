@@ -196,6 +196,15 @@ def test_port_imports_no_jax():
                          mesh=distributed.global_mesh(device="cpu"))
             tr.run(job=Once())
             assert int(tr.state.env.odometer.max()) == 2
+            # on a model axis: rank 1 of a (1, 2) mesh without its peer
+            # (its collectives return their input) holds three crosses
+            from tpu2048_torch.parallel.mesh import Mesh
+            tr = Trainer("ma", AgentConfig(n=5),
+                         TrainConfig(num_envs=8, steps_per_call=2),
+                         logger=Logger(console=False),
+                         mesh=Mesh(1, 2, 1, torch.device("cpu")))
+            tr.run(job=Once())
+            assert tr.state.weights.shape == (3 * 16**5,)
         fn, args = torch_graft_entry.entry(device="cpu")
         assert fn(*args)[0].shape == (1024,)
         # the apps: a test job served through the service, to its end

@@ -2,10 +2,12 @@
 
 entry()             -> (fn, example_args): the forward (policy) step of
                        the n=4 agent on one device.
-dryrun_multichip(n) -> n data-parallel ranks, one process each, run one
-                       full TD train segment on tiny shapes: n=4, then
-                       the canonical n=5 learner, then the n=6 flagship
-                       with every env recorded.
+dryrun_multichip(n) -> n ranks, one process each, run one full TD
+                       train segment on tiny shapes: n=4 (on a
+                       (n/2, 2) mesh, the table sharded along the model
+                       axis, when n >= 4 is even; else data-parallel),
+                       then the canonical n=5 learner and the n=6
+                       flagship with every env recorded, data-parallel.
 
 Run as a script it is one rank of that dry run (``dryrun_multichip``
 starts it); nothing here imports jax or the JAX package.
@@ -67,6 +69,12 @@ def _dryrun_rank(rendezvous: str, n_ranks: int, rank: int, device: str) -> None:
         torch.set_num_threads(1)
     assert distributed.initialize(rendezvous, n_ranks, rank, device=device)
     m = distributed.global_mesh(MeshConfig(data=n_ranks, model=1))
+    # both mesh axes when possible, as the reference's dry run: envs
+    # data-parallel and the weight table sharded along the model axis
+    if n_ranks >= 4 and n_ranks % 2 == 0:
+        m4 = distributed.global_mesh(MeshConfig(data=n_ranks // 2, model=2))
+    else:
+        m4 = m
     tcfg = TrainConfig(
         num_envs=8 * n_ranks,
         steps_per_call=4,
@@ -75,7 +83,7 @@ def _dryrun_rank(rendezvous: str, n_ranks: int, rank: int, device: str) -> None:
         max_record_steps=64,
         seed=0,
     )
-    # envs data-parallel, the table replicated: n=4; the shipped
+    # n=4 on ``m4``; envs data-parallel, the table replicated: the shipped
     # geometry (n=5) in canonical-orbit form, its sparse update crossing
     # ranks as index/value all-gathers; and the flagship exactly as
     # shipped: n=6 canonical + temporal coherence, ALL envs recorded
@@ -85,32 +93,38 @@ def _dryrun_rank(rendezvous: str, n_ranks: int, rank: int, device: str) -> None:
               (AgentConfig(n=6), dataclasses.replace(tcfg, record_envs=-1))]
     episodes = []
     for seed, (acfg, cfg) in enumerate(passes):
+        mesh = m4 if seed == 0 else m
         ts = ntuple.get_tuple_set(acfg.n)
-        gen = torch.Generator(device=m.device)
+        gen = torch.Generator(device=mesh.device)
         gen.manual_seed(seed)
         draws = TorchDraws(gen)
-        state = pmesh.init_sharded_td_state(ts, acfg, cfg, m, draws)
-        seg = pmesh.make_sharded_train_segment(ts, acfg, cfg, m, draws)
+        state = pmesh.init_sharded_td_state(ts, acfg, cfg, mesh, draws)
+        seg = pmesh.make_sharded_train_segment(ts, acfg, cfg, mesh, draws)
         out = seg(state)
         # read on the host to prove execution completed
         assert float(out.weights.abs().sum()) > 0.0
         assert int(out.env.odometer.min()) >= 0
-        assert out.env.score.shape == (8,)  # this rank's share
+        # this rank's share of the envs, and of the table
+        assert out.env.score.shape == (cfg.num_envs // mesh.data,)
+        shard = mesh.table_shard(ts)
+        assert out.weights.shape == (ts.total if shard is None
+                                     else shard.size,)
         episodes.append(int(out.metrics.episodes))
         del state, out
     m.barrier()
     torch.distributed.destroy_process_group()
     print(f"DRYRUN_RANK_OK {rank} episodes={episodes} "
-          f"collectives={m.counts}", flush=True)
+          f"collectives={m.counts} n4_collectives={m4.counts}", flush=True)
 
 
 def dryrun_multichip(n_devices: int) -> None:
     """Run one full sharded train segment per geometry on ``n_devices``
-    ranks (envs data-parallel, table replicated with all-reduced and
-    all-gathered TD updates): NCCL ranks, one per card, when that many
-    cards are present, else gloo ranks on the CPU, as the output line
-    says.  (The reference's model-axis variant waits for the model
-    axis, ROADMAP.md Queue 1.)"""
+    ranks: NCCL ranks, one per card, when that many cards are present,
+    else gloo ranks on the CPU, as the output line says.  The n=4 pass
+    takes the reference's variant, a (n/2, 2) mesh with the table
+    sharded along the model axis, when ``n_devices >= 4`` is even; the
+    others (and n=4 otherwise) put every rank on the data axis, the
+    table replicated with all-reduced and all-gathered TD updates."""
     import torch
 
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -144,9 +158,10 @@ def dryrun_multichip(n_devices: int) -> None:
                   "present)")
     print(
         f"dryrun_multichip OK: {where}, "
-        f"{8 * n_devices} envs x 4 steps; n=4 segment OK; "
-        f"canonical n=5 segment OK; "
-        f"flagship n=6 canonical+tc segment OK"
+        f"{8 * n_devices} envs x 4 steps; n=4 segment "
+        + (f"on a ({n_devices // 2}, 2) mesh OK; "
+           if n_devices >= 4 and n_devices % 2 == 0 else "OK; ")
+        + "canonical n=5 segment OK; flagship n=6 canonical+tc segment OK"
     )
 
 

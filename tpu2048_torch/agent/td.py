@@ -64,6 +64,22 @@ ranks' candidates with the single-device tie-break.  So the replicas
 stay bitwise equal, and the games do not depend on the number of ranks
 until f32 summation order flips an argmax.  Without a mesh no
 collective runs and the step is the single-device step as it was.
+
+Under a mesh's model axis (``mesh.model > 1``) the weights and the TC
+sums are this rank's shard (``parallel/mesh.py::table_layout``), and
+the ranks of one model group step the same envs.  The evaluators
+value the shard's pieces and sum them over the model group
+(``ops/dispatch.py``); the class gradients are taken on the shard's
+tuples of each 16^2..16^4 class and all-reduced over the data group,
+and where a class is split across ranks its pair's tuple slices are
+all-gathered over the model group before the fold (the D4 orbits span
+tuples); every rule then applies to the shard's entries only, the
+sparse updates masked to the shard.  The D4 sums that read other
+tuples' entries (the "fold" learners' pair and the "periodic"
+projection) all-gather the shard-sized input over the model group
+once and cut the shard's entries from the whole table's sum.  The
+metrics, the best game and the recorder meet over the data group
+only: the model group's ranks hold the same envs.
 """
 
 from __future__ import annotations
@@ -82,8 +98,7 @@ from ..features import ntuple
 from ..features.canonical import (_gather_feat_ids, canonical_gather_indices,
                                   is_canonical)
 from ..features.ntuple import TupleSet
-from ..features.symmetry import (symmetrize_class_sum, symmetrize_sum,
-                                 symmetrize_table)
+from ..features.symmetry import symmetrize_class_sum, symmetrize_sum
 from ..ops import dispatch as table_dispatch
 from ..ops import kernels
 
@@ -242,7 +257,7 @@ def _mesh_draws(draws: Draws, mesh) -> Draws:
     """This rank's env range of the global batch's draws."""
     if mesh is None:
         return draws
-    return EnvSliceDraws(draws, mesh.rank, mesh.data)
+    return EnvSliceDraws(draws, mesh.data_rank, mesh.data)
 
 
 def init_td_state(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
@@ -253,13 +268,18 @@ def init_td_state(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     ``draws.uniform`` unless ``weights`` is given, fresh boards from
     ``draws.new``, zeroed TC accumulators (placeholders under "sgd"),
     rings and logs.  Under a ``mesh``: this rank's share of the global
-    batch of ``tcfg.num_envs`` envs, from the global batch's draws."""
+    batch of ``tcfg.num_envs`` envs, from the global batch's draws, and
+    under its model axis this rank's shard of the tables (``weights``,
+    and the fresh table drawn whole, are cut to it)."""
     device = torch.device(device)
+    shard = None if mesh is None else mesh.table_shard(ts)
     s = tcfg.max_record_steps
     n, r_env = _mesh_sizes(tcfg, mesh)
     draws = _mesh_draws(draws, mesh)
     if weights is None:
         weights = draws.uniform((ts.total,)) * 0.01
+    if shard is not None:
+        weights = weights[shard.lo: shard.hi].clone()
     weights = weights.to(device=device, dtype=torch.float32).contiguous()
     if acfg.engine_mode == "codes":
         env = engf.init_env_codes(n, draws)
@@ -295,7 +315,7 @@ def init_td_state(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
         ring_pos=scalar(0, i32),
         best_score=scalar(0, i32),
     )
-    opt_shape = (ts.total,) if acfg.optimizer == "tc" else (0,)
+    opt_shape = (weights.shape[0],) if acfg.optimizer == "tc" else (0,)
     kc = _canon_feat_count(ts, acfg)
     return TDState(
         weights=weights,
@@ -358,10 +378,12 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     CPU tensors); "search" is "pallas" on the card and "gather"
     elsewhere; "gather" takes plain torch everywhere.
 
-    Under a ``mesh`` the state is this rank's share and the step is
-    the global batch's (see the module doc); ``draws`` is the run's
-    source, seeded alike on every rank."""
+    Under a ``mesh`` the state is this rank's share (and shard) and the
+    step is the global batch's (see the module doc); ``draws`` is the
+    run's source, seeded alike on every rank."""
     _check_settings(acfg)
+    shard = None if mesh is None else mesh.table_shard(ts)
+    lo = 0 if shard is None else shard.lo
     num_feat = ts.num_feat
     ring = tcfg.ring_size
     r_env = _mesh_sizes(tcfg, mesh)[1]
@@ -377,9 +399,10 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     actor_bf16 = acfg.actor_precision == "bf16"
 
     if canon:
-        classes_c, class_grads = table_dispatch.make_class_grads(ts, ops)
+        classes_c, class_grads = table_dispatch.make_class_grads(ts, ops,
+                                                                 mesh)
     elif tc or fold_step:
-        accumulate = table_dispatch.make_delta_accumulator(ts, ops)
+        accumulate = table_dispatch.make_delta_accumulator(ts, ops, mesh)
     else:
         update = table_dispatch.make_updater(ts, ops, mean=mean, mesh=mesh)
     if codes_mode:
@@ -388,33 +411,58 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
         # (the TD bootstrap); "bf16x2": exact selection
         train_ev = table_dispatch.make_train_evaluator(
             ts, ops, canonical=canon,
-            precision="bf16" if actor_bf16 else None)
+            precision="bf16" if actor_bf16 else None, mesh=mesh)
         if actor_bf16:
-            mxu_exact = table_dispatch.make_mxu_eval_idx(ts, ops)
+            mxu_exact = table_dispatch.make_mxu_eval_idx(ts, ops, mesh)
     else:
         select = make_select_greedy(
-            ts, table_dispatch.make_evaluator(ts, ops, canonical=canon))
+            ts, table_dispatch.make_evaluator(ts, ops, canonical=canon,
+                                              mesh=mesh))
 
     def fold(c, pair):
         if table_dispatch.uses_kernels(ops, pair.device):
             return kernels.fold_class(ts, c.feat0, c.g, pair)
         return symmetrize_class_sum(ts, c.feat0, c.g, pair)
 
+    def whole_class(c, pair: Optional[torch.Tensor]) -> torch.Tensor:
+        """The class's (2, g, h * l) pair from its owners' tuple slices,
+        all-gathered over the model group (every rank of it calls)."""
+        hl = c.h * c.l
+        sizes = [b - a for a, b in (shard.tuples(c.feat0, c.g, r)
+                                    for r in range(mesh.model))]
+        if pair is None:
+            pair = torch.zeros((2, 0, hl), dtype=torch.float32,
+                               device=mesh.device)
+        return mesh.all_gather_cat(pair.view(2, -1, hl), sizes, dim=1,
+                                   axis="model")
+
     def class_block_update(state: TDState, delta: torch.Tensor) -> None:
         """Canonical form, 16^2..16^4 classes: [dsum; hits] pairs,
-        their D4 fold, and the optimizer's rule on each class block,
-        in place."""
+        their D4 fold, and the optimizer's rule on each class block (on
+        this rank's tuples of it, under a model axis), in place."""
         pairs = class_grads(state.prev_idx.reshape(-1, num_feat), delta,
                             state.prev_valid)
         for c, pair in zip(classes_c.matmul, pairs):
-            nsz = c.g * c.h * c.l
-            if mesh is not None:
+            hl = c.h * c.l
+            a, b = (0, c.g) if shard is None else shard.tuples(c.feat0, c.g)
+            if pair is not None and mesh is not None:
                 # global sums and hits before the fold and the divide
                 mesh.all_reduce(pair)
-            # the gradient pair is the fold's input as it stands
-            pair = fold(c, pair.view(2, c.g, c.h * c.l))
+            if shard is not None and shard.split(c.feat0, c.g):
+                # the fold's orbits span tuples: the whole class pair
+                pair = whole_class(c, pair)
+                if a == b:
+                    continue
+                pair = fold(c, pair)[:, a:b]
+            elif pair is None:
+                continue
+            else:
+                # the gradient pair is the fold's input as it stands
+                pair = fold(c, pair.view(2, c.g, hl))
+            nsz = (b - a) * hl
             dsum, hits = pair[0].reshape(nsz), pair[1].reshape(nsz)
-            blk = slice(c.start, c.start + nsz)
+            at = c.start + a * hl - lo
+            blk = slice(at, at + nsz)
             if tc:
                 _tc_apply(state.weights[blk], state.opt_e[blk],
                           state.opt_a[blk], state.alpha,
@@ -446,13 +494,17 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
             # every rank applies the global batch's list, in its order
             cidx, per, valid = mesh.all_gather_rows(cidx, per, valid)
         valid = valid[:, None].expand(cidx.shape)
-        per = torch.where(valid, per, 0.0)
         flat = cidx.reshape(-1).long()
+        if shard is not None:
+            # the entries of other shards add exact zeros at entry 0
+            held, flat = table_dispatch._owned(shard, flat)
+            valid = valid & held.view(cidx.shape)
+        per = torch.where(valid, per, 0.0)
         if mean:
-            hits_g = torch.zeros(ts.total, dtype=torch.float32,
+            hits_g = torch.zeros(state.weights.shape[0], dtype=torch.float32,
                                  device=cidx.device)
             hits_g.index_add_(0, flat, valid.to(torch.float32).reshape(-1))
-            per = per / hits_g[cidx.long()].clamp(min=1.0)
+            per = per / hits_g[flat].view(cidx.shape).clamp(min=1.0)
         if not tc:
             add(state.weights, flat, per.reshape(-1))
             return
@@ -463,9 +515,10 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
         add(state.opt_a, flat, per.abs().reshape(-1))
 
     def global_pair(pair: torch.Tensor) -> torch.Tensor:
-        """The table-sized [dsum; hits] pair (or its dsum) summed over
-        the ranks: as heavy as the table, and as the reference's
-        all-reduce under GSPMD off the canonical form."""
+        """The table-sized (under a model axis, shard-sized) [dsum;
+        hits] pair (or its dsum) summed over the data group: as heavy
+        as the table, and as the reference's all-reduce under GSPMD
+        off the canonical form."""
         return pair if mesh is None else mesh.all_reduce(pair)
 
     def table_update(state: TDState, td_err: torch.Tensor) -> None:
@@ -480,7 +533,7 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
                 state.weights, idx,
                 delta[:, None].expand(n, num_sym).reshape(-1), valid))
             if fold_step:
-                pair = symmetrize_sum(ts, pair)
+                pair = _symmetrize_sum(ts, pair, mesh)
             # the hit mean whatever update_mode says, as the reference
             _tc_apply(state.weights, state.opt_e, state.opt_a, state.alpha,
                       pair[0] / pair[1].clamp(min=1.0))
@@ -491,12 +544,12 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
         if not fold_step:
             update(state.weights, idx, dw, valid)
         elif mean:
-            pair = symmetrize_sum(ts, global_pair(accumulate(
-                state.weights, idx, dw, valid)))
+            pair = _symmetrize_sum(ts, global_pair(accumulate(
+                state.weights, idx, dw, valid)), mesh)
             state.weights.add_(pair[0] / pair[1].clamp(min=1.0))
         else:
             dsum = global_pair(accumulate(state.weights, idx, dw, valid)[0])
-            state.weights.add_(symmetrize_sum(ts, dsum))
+            state.weights.add_(_symmetrize_sum(ts, dsum, mesh))
 
     def train_step(state: TDState):
         draws.split()
@@ -698,6 +751,20 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     return train_step
 
 
+def _symmetrize_sum(ts: TupleSet, x: torch.Tensor, mesh=None
+                    ) -> torch.Tensor:
+    """``symmetrize_sum`` of a table (..., total), or of this rank's
+    shard of it (..., shard) under a model axis: one all-gather of the
+    shards over the model group, then the shard's entries of the whole
+    table's sum."""
+    shard = None if mesh is None else mesh.table_shard(ts)
+    if shard is None:
+        return symmetrize_sum(ts, x)
+    sizes = [b - a for a, b in zip(shard.bounds, shard.bounds[1:])]
+    whole = mesh.all_gather_cat(x, sizes, dim=-1, axis="model")
+    return symmetrize_sum(ts, whole)[..., shard.lo: shard.hi]
+
+
 class _BestGame(NamedTuple):
     """A candidate for the recorder's best game."""
 
@@ -866,8 +933,10 @@ def make_train_segment(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     device inside it.  Under ``sym_mode="periodic"`` the segment ends
     by projecting the weights (and the TC sums) onto the D4-symmetric
     subspace (``symmetrize_table``), as the reference's does; the
-    tables are replicated under a ``mesh``, so every rank projects its
-    own with no collective."""
+    tables are replicated under a ``mesh`` without a model axis, so
+    every rank projects its own with no collective, and under one each
+    rank projects its shard from one all-gather of each table
+    (``_symmetrize_sum``)."""
     step = make_train_step(ts, acfg, tcfg, draws, mesh=mesh)
 
     def segment(state: TDState) -> TDState:
@@ -880,11 +949,13 @@ def make_train_segment(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
         state = state._replace(recorder=_merge_staged_recorder(
             state.recorder, starts0, stacked, tcfg.max_record_steps, mesh))
         if acfg.sym_mode == "periodic":
-            state = state._replace(weights=symmetrize_table(ts, state.weights))
+            # symmetrize_table: the orbit sum over 8
+            state = state._replace(
+                weights=_symmetrize_sum(ts, state.weights, mesh) / 8.0)
             if acfg.optimizer == "tc":
                 state = state._replace(
-                    opt_e=symmetrize_table(ts, state.opt_e),
-                    opt_a=symmetrize_table(ts, state.opt_a))
+                    opt_e=_symmetrize_sum(ts, state.opt_e, mesh) / 8.0,
+                    opt_a=_symmetrize_sum(ts, state.opt_a, mesh) / 8.0)
         return state
 
     return segment

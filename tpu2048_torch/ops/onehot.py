@@ -83,10 +83,13 @@ def _class_offsets(n: int, feat0: int, g: int, device: torch.device
                             ).to(device)
 
 
-def _hi_lo(ts: TupleSet, idx: torch.Tensor, c: TableClass
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _hi_lo(ts: TupleSet, idx: torch.Tensor, c: TableClass, a: int = 0,
+           b: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split this class's global indices into (hi, lo) int32 levels,
-    each a new contiguous (..., G) tensor."""
-    off = _class_offsets(ts.n, c.feat0, c.g, idx.device)
-    local = idx[..., c.feat0: c.feat0 + c.g] - off
+    each a new contiguous (..., G) tensor; of the class's tuples ``a ..
+    b - 1`` only, a (..., b - a) pair, when given (a rank's tuples
+    under a model axis)."""
+    b = c.g if b < 0 else b
+    off = _class_offsets(ts.n, c.feat0 + a, b - a, idx.device)
+    local = idx[..., c.feat0 + a: c.feat0 + b] - off
     return local // c.l, local % c.l

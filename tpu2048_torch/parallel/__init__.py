@@ -1,3 +1,4 @@
-"""Data-parallel training across processes: the mesh, which leaves of
-the train state are per-env and which replicated, and the bring-up of
-``torch.distributed`` (``tpu2048/parallel``)."""
+"""Training across processes: the (data, model) mesh, which leaves of
+the train state are per-env, sharded along the model axis or
+replicated, and the bring-up of ``torch.distributed``
+(``tpu2048/parallel``)."""

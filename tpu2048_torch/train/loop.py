@@ -14,10 +14,13 @@ only on a generator of its own type (CPU or CUDA), and otherwise the
 stream starts afresh from ``tcfg.seed``, as the log says.
 
 Under a device mesh (``mesh=``, ``parallel/mesh.py``) every rank runs
-this loop on its share of the env batch; the state's replicated leaves
-(tables, metrics, best game) are the same on all, so every rank takes
-the same turns, and only rank 0 writes: checkpoints, the best game, the
-metrics file and the log.
+this loop on its share of the env batch (and, under a model axis, its
+shard of the tables); the state's replicated leaves (metrics, best
+game, and the tables without a model axis) are the same on all, so
+every rank takes the same turns, and only rank 0 writes: checkpoints,
+the best game, the metrics file and the log.  A checkpoint holds the
+whole tables whatever the mesh, so it loads in any run; a resume cuts
+each rank's shard from it.
 
 ``run(trace_dir=...)`` traces the whole session with ``torch.profiler``
 (``obs/profiler.py::device_trace``).
@@ -183,11 +186,13 @@ class Trainer:
         extras = meta.get("extras", {})
         st = self.state
         if self.acfg.optimizer == "tc" and "opt_e" in extras:
-            st = st._replace(
-                opt_e=torch.from_numpy(np.asarray(extras["opt_e"],
-                                                  np.float32)).to(dev),
-                opt_a=torch.from_numpy(np.asarray(extras["opt_a"],
-                                                  np.float32)).to(dev))
+            def table(key):
+                x = torch.from_numpy(np.asarray(extras[key], np.float32))
+                if self.mesh is not None:
+                    x = pmesh.shard_table(x, self.mesh, self.ts)
+                return x.to(dev)
+
+            st = st._replace(opt_e=table("opt_e"), opt_a=table("opt_a"))
         saved_on = rng_state_device(extras)
         if saved_on == dev.type:
             # continue the saved stream; env boards restart fresh
@@ -325,18 +330,29 @@ class Trainer:
     def save(self) -> None:
         """The agent in the reference's checkpoint format: weights, the
         TC accumulators, and the generator's state and device type
-        under keys of their own (no ``rng_key``).  Every leaf a
-        checkpoint holds is replicated under a mesh (the model axis is
-        not ported), so rank 0 reads its own copy with no collective
-        and the other ranks have nothing to do."""
-        if self.store is None or not self._is_writer:
+        under keys of their own (no ``rng_key``).  Under a mesh's model
+        axis every rank first reads the sharded tables whole through
+        ``host_full`` (a collective over the model group), before the
+        writer check, as the reference's every process does; without
+        one the tables are replicated, so rank 0 reads its own copy
+        with no collective and the other ranks have nothing to do."""
+        if self.store is None:
             return
         st = self.state
+        sharded = self.mesh is not None and self.mesh.model > 1
+        if not (self._is_writer or sharded):
+            return
+        spec = pmesh.MODEL if sharded else pmesh.REPLICATED
+        tables = {f: pmesh.host_full(getattr(st, f), self.mesh, spec)
+                  for f in ("weights", "opt_e", "opt_a")
+                  if f == "weights" or self.acfg.optimizer == "tc"}
+        if not self._is_writer:
+            return
         extras = {RNG_EXTRA: _np(self.draws.generator.get_state()),
                   RNG_DEVICE_EXTRA: np.asarray(self.device.type)}
         if self.acfg.optimizer == "tc":
-            extras["opt_e"] = _np(st.opt_e)
-            extras["opt_a"] = _np(st.opt_a)
+            extras["opt_e"] = tables["opt_e"]
+            extras["opt_a"] = tables["opt_a"]
         meta = {
             **self._provenance,
             "episodes": int(st.metrics.episodes),
@@ -347,7 +363,7 @@ class Trainer:
             "train_history": [int(x) for x in self.train_history],
             "num_envs": self.tcfg.num_envs,
         }
-        ckpt.save_agent(self.store, self.name, self.acfg, _np(st.weights),
+        ckpt.save_agent(self.store, self.name, self.acfg, tables["weights"],
                         meta, extras=extras)
 
     def _maybe_save_best_game(self) -> None:
