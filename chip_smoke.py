@@ -159,11 +159,30 @@ Phases, one line of output each (the kernel phases one per check):
      tables) loads on the card, plays 256 games, and its best game
      replays.  With two or more cards the same on two NCCL ranks; with
      one the line says that this was not run.
+ 19. onehot: ``table_ops="onehot"`` on the card (exact f32 one-hot
+     matrix products, no kernel of its own): the evaluator at
+     ONEHOT_B = 32768 rows of an n=5 canonical agent against the CPU's
+     one-hot evaluator and the card's "gather" (bitwise with dyadic
+     weights, within 2^-17 of sum |terms| with normal ones); the same
+     call refused while TF32 is allowed, in each of TF32_WAYS (every
+     setting restored after); one step of the defaults and one of sgd
+     with ``sym_impl="index"`` (the updater's products) at 8192 envs
+     against the CPU, held as in phase 10, no kernel launched; then the step's time at 8192 envs, "onehot"
+     against "pallas" for both learners in the order onehot, pallas,
+     pallas, onehot, with each one's peak allocated memory;
+ 20. drivers: the flagship drivers as subprocesses on the card, with a
+     fresh ``HOME`` of their own: ``scripts/torch_train_flagship.py
+     --table-ops pallas`` at 8192 envs to DRIVER_EPISODES episodes,
+     ``torch_eval_flagship.py`` on the agent it saved (greedy, and a
+     depth-1 search), and ``torch_eval_native.py --num 4 --depth 1``;
+     each must exit 0 and print its result line, and the kernels'
+     launches in each run are printed (read in the script's own
+     process after it ends).
 
 Then a JSON line of the kernels of the paths (name, route,
 source, the TPU kernel it replaces, its launches in the serve, train,
-search, train_variant, flagship, n7, mesh, apps and model_axis runs (the
-last the two ranks' sum), its largest error
+search, train_variant, flagship, n7, mesh, apps, model_axis (the two
+ranks' sum) and drivers runs, its largest error
 against the plain
 version, its, the plain version's and the library call's time in ms,
 and its bound:
@@ -205,6 +224,10 @@ RANKS_TIMEOUT = 300  # seconds for phase 15's ranks, then they are killed
 MODEL_AXIS_SEGMENTS = 4  # phase 18's n=6 run on two ranks
 MODEL_AXIS_TIMEOUT = 300  # seconds for phase 18's ranks, then they are killed
 APP_EPISODES = 2000  # phase 16's train job: a few segments at 8192 envs
+ONEHOT_B = 4 * TRAIN_B  # phase 19's evaluator rows: the selection's
+ONEHOT_STEPS = 8  # steps timed per run in phase 19
+DRIVER_EPISODES = 2000  # phase 20's train twin: a few segments
+DRIVER_TIMEOUT = 300  # seconds for one driver of phase 20, then it is killed
 APP_TEST_GAMES = 1000
 APP_WATCH_FRAMES = 10
 APP_WAIT_S = 300  # the longest phase 16 waits for one job
@@ -2283,6 +2306,268 @@ def phase_trace() -> None:
                              for n, (c, us) in top])
 
 
+def _rand_boards(b: int, seed: int) -> torch.Tensor:
+    """(b, 16) int8 boards of exponents in [1, 12), about 30% empty."""
+    rng = np.random.default_rng(seed)
+    boards = rng.integers(1, 12, (b, 16)).astype(np.int8)
+    boards[rng.random((b, 16)) < 0.3] = 0
+    return torch.from_numpy(boards)
+
+
+def _set_tf32(value):
+    """Set cuBLAS's f32 matmul mode; returns the mode it replaced."""
+    m = torch.backends.cuda.matmul
+    if hasattr(m, "fp32_precision"):
+        prev, m.fp32_precision = m.fp32_precision, value
+    else:  # torch before the fp32_precision settings
+        prev, m.allow_tf32 = m.allow_tf32, value == "tf32"
+        prev = "tf32" if prev else "ieee"
+    return prev
+
+
+# the ways a caller may allow TF32 for CUDA f32 matmuls (``_allow_tf32``)
+TF32_WAYS = ("backend", "global", "generic")
+_FP32_SETTINGS = ("", "cuda.matmul", "cudnn", "cudnn.conv", "cudnn.rnn",
+                  "mkldnn", "mkldnn.matmul", "mkldnn.conv", "mkldnn.rnn")
+
+
+def _allow_tf32(way: str):
+    """Allow TF32 for CUDA f32 matmuls as a caller may: cuBLAS's own
+    mode ("backend"), ``torch.set_float32_matmul_precision("high")``
+    ("global"), or torch's generic mode, which cuBLAS follows while its
+    own is "none" ("generic").  Returns a function that puts every
+    precision setting back as it was."""
+    saved = []
+    for path in _FP32_SETTINGS:
+        obj = torch.backends
+        for part in filter(None, path.split(".")):
+            obj = getattr(obj, part, None)
+        if obj is not None and hasattr(obj, "fp32_precision"):
+            saved.append((obj, obj.fp32_precision))
+    legacy = torch.get_float32_matmul_precision()
+    if way == "backend":
+        _set_tf32("tf32")
+    elif way == "global":
+        torch.set_float32_matmul_precision("high")
+    elif way == "generic":
+        torch.backends.cuda.matmul.fp32_precision = "none"
+        torch.backends.fp32_precision = "tf32"
+    else:
+        raise ValueError(f"unknown way to allow TF32: {way}")
+
+    def restore():
+        # the generic mode first: while it is "tf32" torch refuses to
+        # read or set the legacy precision
+        for obj, value in saved:
+            if obj is torch.backends:
+                obj.fp32_precision = value
+        torch.set_float32_matmul_precision(legacy)
+        for obj, value in saved:
+            obj.fp32_precision = value
+
+    return restore
+
+
+def _step_run(acfg, tcfg) -> dict:
+    """ONEHOT_STEPS steps of ``acfg`` on the card after two warm ones:
+    ms per step (host clock around synchronized steps) and the peak
+    memory allocated during them above what the process held before
+    the run (its state included, earlier phases' tensors not)."""
+    from tpu2048_torch.agent import td
+    from tpu2048_torch.draws import NumpyDraws
+    from tpu2048_torch.features.ntuple import get_tuple_set
+
+    ts = get_tuple_set(acfg.n)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    st = td.init_td_state(ts, acfg, tcfg, NumpyDraws(0, "cuda"), "cuda")
+    step = td.make_train_step(ts, acfg, tcfg, NumpyDraws(1, "cuda"))
+    for _ in range(2):
+        st, _rec = step(st)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(ONEHOT_STEPS):
+        st, _rec = step(st)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / ONEHOT_STEPS
+    return {"ms_per_step": ms,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def phase_onehot() -> None:
+    """Phase 19: ``table_ops="onehot"`` on the card (see the module
+    doc)."""
+    import dataclasses
+
+    from tpu2048_torch.config import AgentConfig, TrainConfig
+    from tpu2048_torch.features.ntuple import get_tuple_set
+    from tpu2048_torch.ops import dispatch
+
+    t0 = time.perf_counter()
+    ts = get_tuple_set(5)
+    boards = _rand_boards(ONEHOT_B, 19)
+    ev = dispatch.make_evaluator(ts, "onehot", canonical=True)
+    gather = dispatch.make_evaluator(ts, "gather", canonical=True)
+    before = _launch_counts()
+    checks = {}
+    for kind, w in (("dyadic", torch.from_numpy(_dyadic(ts.total, 19))),
+                    ("normal", torch.from_numpy(np.random.default_rng(19)
+                                                .standard_normal(ts.total)
+                                                .astype(np.float32)))):
+        wc, bc = w.cuda(), boards.cuda()
+        card = ev(wc, bc).cpu()
+        cpu = ev(w, boards)
+        gat = gather(wc, bc).cpu()
+        scale = gather(w.abs(), boards)
+        errs = {"cpu": float((card - cpu).abs().max()),
+                "gather": float((card - gat).abs().max())}
+        if kind == "dyadic":
+            ok = torch.equal(card, cpu) and torch.equal(card, gat)
+        else:
+            ok = all(bool(((card - x).abs() <= 2.0**-17 * scale).all())
+                     for x in (cpu, gat))
+        if not ok:
+            raise AssertionError(f"onehot evaluator ({kind} weights) off the "
+                                 f"CPU's or the gather's: {errs}")
+        checks[kind] = errs
+    torch.cuda.synchronize()
+    ev_ms = _device_ms(lambda: ev(wc, bc), reps=5, inner=5)
+    pallas = dispatch.make_evaluator(ts, "pallas", canonical=True)
+    pallas_ms = _device_ms(lambda: pallas(wc, bc), reps=5, inner=5)
+    gather_ms = _device_ms(lambda: gather(wc, bc), reps=5, inner=5)
+    if _launch_counts()["eval_class"] == before["eval_class"]:
+        raise AssertionError("the pallas evaluator launched no kernel")
+    for way in TF32_WAYS:
+        restore = _allow_tf32(way)
+        try:
+            ev(wc, bc)
+            refused = False
+        except RuntimeError as e:
+            refused = "needs exact f32" in str(e)
+        finally:
+            restore()
+        if not refused:
+            raise AssertionError(f"the onehot evaluator ran with TF32 "
+                                 f"allowed ({way})")
+    ev(wc, bc)  # and runs again once each setting is back
+    _line("onehot_eval_check", n=5, canonical=True, rows=ONEHOT_B,
+          dyadic="bitwise against the CPU and gather",
+          normal="within 2^-17 of sum |terms|", max_abs_err=checks,
+          tf32_refused=list(TF32_WAYS),
+          ms={"onehot": ev_ms[0], "pallas": pallas_ms[0],
+              "gather": gather_ms[0]})
+    tcfg = TrainConfig(num_envs=TRAIN_B)
+    learners = {"defaults": AgentConfig(table_ops="onehot"),
+                "sgd_index": AgentConfig(table_ops="onehot", optimizer="sgd",
+                                         alpha=0.25, sym_impl="index")}
+    for name, acfg in learners.items():
+        card, plain, slack, launches = _card_step_against_cpu(acfg, tcfg)
+        errs = _hold_states(card, plain, f"onehot step {name}", slack)
+        if any(launches.values()):
+            raise AssertionError(f"onehot step {name} launched {launches}")
+        _line("onehot_step_check", learner=name, n=5, envs=TRAIN_B,
+              integers="bitwise", max_abs_err=errs,
+              tolerance="2^-17 * max|table| + the entry's summation-order "
+              "bound", launches=launches)
+    runs = {}
+    for name, acfg in learners.items():
+        for ops in ("onehot", "pallas", "pallas", "onehot"):
+            r = _step_run(dataclasses.replace(acfg, table_ops=ops), tcfg)
+            runs.setdefault(name, {}).setdefault(ops, []).append(r)
+    _line("onehot_step_time", n=5, envs=TRAIN_B, steps=ONEHOT_STEPS,
+          order="onehot, pallas, pallas, onehot",
+          ms_per_step={k: {o: [r["ms_per_step"] for r in v[o]] for o in v}
+                       for k, v in runs.items()},
+          peak_allocated_bytes={k: {o: max(r["peak_allocated_bytes"]
+                                           for r in v[o]) for o in v}
+                                for k, v in runs.items()},
+          seconds=time.perf_counter() - t0)
+
+
+# runs a driver as ``python3 script args`` would, then prints the
+# kernels' launches in its process
+_DRIVER_WRAP = """
+import json, runpy, sys
+script = sys.argv[1]
+sys.argv = sys.argv[1:]
+runpy.run_path(script, run_name="__main__")
+from tpu2048_torch.ops import kernels
+print("driver_launches: " + json.dumps({k.__name__: k.launches for k in (
+    kernels.eval_class, kernels.grad_class, kernels.fold_class)}))
+"""
+
+
+def _driver(home: str, script: str, *args, want: str) -> tuple:
+    """One driver of phase 20 as a subprocess, from the repo's root with
+    ``HOME`` at ``home``: (its launches, its line starting with
+    ``want``, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "HOME": home,
+           "TPU2048_NATIVE_DIR": os.path.join(home, "native")}
+    os.makedirs(env["TPU2048_NATIVE_DIR"], exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _DRIVER_WRAP,
+         os.path.join(root, "scripts", script), *map(str, args)],
+        cwd=root, env=env, capture_output=True, text=True,
+        timeout=DRIVER_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{script} exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    launches = json.loads(lines[-1].split(": ", 1)[1])
+    found = [ln for ln in lines if ln.startswith(want)]
+    if not found:
+        raise AssertionError(f"{script} printed no line {want!r}: "
+                             f"{proc.stdout[-2000:]}")
+    return launches, found[-1], seconds
+
+
+def phase_drivers() -> dict:
+    """Phase 20: the flagship drivers as subprocesses on the card (see
+    the module doc).  Returns the kernels' launches of the train and
+    eval drivers' runs."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(("eval_class", "grad_class", "fold_class"), 0)
+    with tempfile.TemporaryDirectory() as home:
+        runs = {}
+        runs["train"] = _driver(
+            home, "torch_train_flagship.py", "smoke_drv", "--table-ops",
+            "pallas", "--num-envs", TRAIN_B, "--episodes", DRIVER_EPISODES,
+            want="RESULT ")
+        if not (runs["train"][0]["eval_class"]
+                and runs["train"][0]["grad_class"]):
+            raise AssertionError(f"the train driver under pallas launched "
+                                 f"{runs['train'][0]}")
+        runs["eval_greedy"] = _driver(
+            home, "torch_eval_flagship.py", "smoke_drv", "--num", 256,
+            want="best game saved: g/best_eval_smoke_drv.npz")
+        runs["eval_search"] = _driver(
+            home, "torch_eval_flagship.py", "smoke_drv", "--num", 16,
+            "--depth", 1, "--width", 2,
+            want="best game saved: g/best_eval_smoke_drv.npz")
+        runs["eval_native"] = _driver(
+            home, "torch_eval_native.py", "smoke_drv", "--num", 4,
+            "--depth", 1, want="average score of 4 runs = ")
+        for what, (launches, line, seconds) in runs.items():
+            _line("driver", run=what, line=line, launches=launches,
+                  seconds=seconds)
+            if what == "eval_native":
+                if any(launches.values()):
+                    raise AssertionError(f"the native driver launched "
+                                         f"{launches}")
+                continue
+            if not launches["eval_class"]:
+                raise AssertionError(f"the {what} driver launched no "
+                                     f"eval_class: {launches}")
+            for k, v in launches.items():
+                total[k] += v
+    _line("drivers", launches=total, seconds=time.perf_counter() - t0)
+    return total
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -2309,6 +2594,8 @@ def main() -> int:
     apps = phase_apps()
     phase_trace()
     model_axis = phase_model_axis(kstats)
+    phase_onehot()
+    drivers = phase_drivers()
     loaded = sorted(m for m in sys.modules if m == "jax" or m == "tpu2048"
                     or m.startswith(("jax.", "tpu2048.")))
     if loaded:
@@ -2324,15 +2611,16 @@ def main() -> int:
         "source": f"tpu2048_torch/ops/csrc/{k}.cu",
         "replaces": replaces[k],
         "launches": train[k] + variant[k] + flagship[k] + n7[k] + meshed[k]
-        + apps[k] + model_axis[k] + (serve + search if k == "eval_class"
-                                     else 0),
+        + apps[k] + model_axis[k] + drivers[k]
+        + (serve + search if k == "eval_class" else 0),
         "launches_by_path": {"serve": serve if k == "eval_class" else 0,
                              "train": train[k],
                              "search": search if k == "eval_class" else 0,
                              "train_variant": variant[k],
                              "flagship": flagship[k], "n7": n7[k],
                              "mesh": meshed[k], "apps": apps[k],
-                             "model_axis": model_axis[k]},
+                             "model_axis": model_axis[k],
+                             "drivers": drivers[k]},
         "bound_by": "bytes",
         # the same two readings under this round's names
         "bound_us": 1e3 * kstats[k]["bound_ms"],

@@ -547,3 +547,92 @@ def test_model_axis_two_gloo_ranks_on_one_card(tmp_path):
     from _torch_dist_worker import run_workers
 
     run_workers(tmp_path, 2, "card_model", "4", timeout=300)
+
+
+# -- table_ops="onehot" ----------------------------------------------------
+
+def test_onehot_evaluator_card_matches_cpu():
+    """The one-hot products on the card at 4096 rows of an n=5
+    canonical agent: with dyadic weights bitwise the CPU's and the
+    card's "gather"; with normal weights within 2^-17 of sum |terms|.
+    The class gradients: hits bitwise, dsum within hits * 2^-23 * sum
+    |dw|."""
+    from chip_smoke import _dyadic, _rand_boards
+    from tpu2048_torch.ops import dispatch
+    from tpu2048_torch.ops import onehot as oh
+
+    dev = needs_card()
+    ts = get_tuple_set(5)
+    boards = _rand_boards(4096, 3)
+    ev = dispatch.make_evaluator(ts, "onehot", canonical=True)
+    gather = dispatch.make_evaluator(ts, "gather", canonical=True)
+    w = torch.from_numpy(_dyadic(ts.total, 3))
+    card = ev(w.to(dev), boards.to(dev)).cpu()
+    assert torch.equal(card, ev(w, boards))
+    assert torch.equal(card, gather(w.to(dev), boards.to(dev)).cpu())
+    w = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        ts.total).astype(np.float32))
+    card = ev(w.to(dev), boards.to(dev)).cpu()
+    scale = gather(w.abs(), boards)
+    assert bool(((card - ev(w, boards)).abs() <= 2.0**-17 * scale).all())
+    for g, h, l in SHAPES:
+        hi, lo, dw, valid = (torch.from_numpy(a) for a in _grad_np(
+            g, h, l, 8192, seed=g))
+        pair = oh.class_grads(hi.to(dev), lo.to(dev), dw.to(dev),
+                              valid.to(dev), h, l).cpu()
+        want = oh.class_grads(hi, lo, dw, valid, h, l)
+        assert torch.equal(pair[1], want[1])
+        absdw = oh.class_grads(hi, lo, dw.abs(), valid, h, l)[0]
+        assert bool(((pair[0] - want[0]).abs()
+                     <= 2.0**-23 * want[1] * absdw).all())
+
+
+def _grad_np(g, h, l, b, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, h, (b, g)).astype(np.int32),
+            rng.integers(0, l, (b, g)).astype(np.int32),
+            rng.standard_normal(b).astype(np.float32), rng.random(b) < 0.5)
+
+
+@pytest.mark.parametrize("way", ["backend", "global", "generic"])
+def test_onehot_refuses_tf32(way):
+    """With TF32 allowed for CUDA matmuls, in each way a caller may
+    allow it (``chip_smoke._allow_tf32``), the one-hot products raise
+    (they would round every weight); the settings are the caller's,
+    and the port leaves them as it found them."""
+    from chip_smoke import _allow_tf32
+    from tpu2048_torch.ops import dispatch
+    from tpu2048_torch.ops import onehot as oh
+
+    dev = needs_card()
+    ts = get_tuple_set(4)
+    w = torch.zeros(ts.total, device=dev)
+    boards = torch.zeros((8, 16), dtype=torch.int8, device=dev)
+    ev = dispatch.make_evaluator(ts, "onehot")
+    restore = _allow_tf32(way)
+    try:
+        with pytest.raises(RuntimeError, match="needs exact f32"):
+            ev(w, boards)
+        assert oh._tf32_allowed()
+    finally:
+        restore()
+    assert float(ev(w, boards).abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("name", ["defaults", "sgd_index"])
+def test_onehot_train_step_card_matches_cpu(name):
+    """One n=5 step of ``table_ops="onehot"`` on the card against the
+    CPU's, as ``chip_smoke.py`` phase 19 holds it at 8192 envs: the
+    defaults (the class gradients' products) and sgd "index" (the
+    updater's); no kernel launched."""
+    needs_card()
+    from chip_smoke import _card_step_against_cpu, _hold_states
+
+    tcfg = TrainConfig(num_envs=1024, ring_size=256, max_record_steps=256)
+    acfg = AgentConfig(table_ops="onehot")
+    if name == "sgd_index":
+        acfg = AgentConfig(table_ops="onehot", optimizer="sgd", alpha=0.25,
+                           sym_impl="index")
+    card, plain, slack, launches = _card_step_against_cpu(acfg, tcfg)
+    _hold_states(card, plain, name, slack)
+    assert not any(launches.values())

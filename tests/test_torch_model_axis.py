@@ -230,6 +230,45 @@ def test_model_axis_bitwise_with_dyadic_deltas(n, world, tmp_path):
     assert_same_run(got, want, one)
 
 
+ONEHOT = {
+    # the one-hot evaluator on each rank's tuple range (the cells
+    # engine's selection) and the one-hot updater's class pairs
+    "index_cells": dict(sym_impl="index", engine_mode="cells"),
+    # the canonical learner's class gradients through the products
+    "canonical": dict(),
+}
+
+
+@pytest.mark.parametrize("name", list(ONEHOT))
+def test_model_axis_onehot_bitwise_with_dyadic_deltas(name, tmp_path):
+    """``table_ops="onehot"`` at n=4 on (1, 2), the 16^4 class split 9/8
+    by tuples: each rank's products over its own tuples, their pieces
+    met in the model group's all-reduce.  With dyadic weights and
+    bootstrap values and sgd "sum" updates (alpha / num_feat = 2^-10)
+    every sum is exact, so one step equals the unmeshed step's bit for
+    bit."""
+    ts = get_tuple_set(4)
+    acfg = AgentConfig(n=4, table_ops="onehot", optimizer="sgd",
+                       alpha=ts.num_feat * 2.0**-10, update_mode="sum",
+                       **ONEHOT[name])
+    tcfg = TrainConfig(num_envs=16, steps_per_call=4, ring_size=64,
+                       max_record_steps=128, seed=4)
+    mid = run_job(make_job(acfg, tcfg, 1))
+    rng = np.random.default_rng(1)
+    mid["weights"] = (rng.integers(0, 41, mid["weights"].shape) * 2.0**-8
+                      ).astype(np.float32)
+    mid["prev_value"] = (np.round(mid["prev_value"] * 256.0) / 256.0
+                         ).astype(np.float32)
+    assert mid["prev_valid"].all()
+    one = dataclasses.replace(tcfg, steps_per_call=1)
+    job = make_job(acfg, one, 1, save_flat(tmp_path, "mid", mid))
+    want, got = run_job(job), model_job(tmp_path, 1, 2, job)
+    assert not np.array_equal(want["weights"], mid["weights"])
+    np.testing.assert_array_equal(got["weights"], want["weights"])
+    assert_same_run(got, want, one)
+    assert got["counts"]["model_all_reduce"] > 0
+
+
 @pytest.mark.parametrize("world", [(1, 2), (1, 4)],
                          ids=lambda w: f"{w[0]}x{w[1]}")
 def test_model_axis_defaults_bitwise_without_a_data_axis(world, tmp_path):

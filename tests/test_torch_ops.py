@@ -214,8 +214,12 @@ def test_resolve_mode():
     assert not tdisp.uses_kernels("search", cpu)
     assert tdisp.uses_kernels("pallas", cpu)
     assert not tdisp.uses_kernels("auto", cpu)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdisp.make_evaluator(jnt.get_tuple_set(2), "onehot")
+    # "onehot" resolves as it is on any device, as in the reference,
+    # and takes no kernel
+    assert tdisp.resolve_mode("onehot", cpu) == "onehot"
+    assert tdisp.resolve_mode("onehot", cuda) == "onehot"
+    assert not tdisp.uses_kernels("onehot", cuda)
+    tdisp.make_evaluator(jnt.get_tuple_set(2), "onehot")
     with pytest.raises(ValueError):
         tdisp.make_evaluator(jnt.get_tuple_set(2), "bogus")
 

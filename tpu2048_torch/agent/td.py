@@ -376,7 +376,9 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     ``fold_class``) on the card and plain torch elsewhere; "pallas"
     takes the kernels' wrappers on any device (their plain versions on
     CPU tensors); "search" is "pallas" on the card and "gather"
-    elsewhere; "gather" takes plain torch everywhere.
+    elsewhere; "gather" takes plain torch everywhere, and "onehot" the
+    one-hot products for the class gradients and the updater (and for
+    the cells engine's evaluator) everywhere (``ops/dispatch.py``).
 
     Under a ``mesh`` the state is this rank's share (and shard) and the
     step is the global batch's (see the module doc); ``draws`` is the

@@ -90,9 +90,11 @@ class AgentConfig:
     # numerics up to ~2^-18 rounding, see tpu2048/ops/dispatch.py):
     # "auto": fused Pallas kernels on TPU, gather elsewhere;
     # "gather": XLA gather/scatter; "onehot": two-level one-hot MXU
-    # matmuls in plain XLA; "pallas": fused Pallas kernels with
-    # VMEM-resident tables (in the port: the CUDA kernels' wrappers
-    # on any device, their plain versions on CPU tensors).
+    # matmuls in plain XLA (in the port: exact f32 torch matrix
+    # products, refused on the card while TF32 is allowed); "pallas":
+    # fused Pallas kernels with VMEM-resident tables (in the port: the
+    # CUDA kernels' wrappers on any device, their plain versions on
+    # CPU tensors).
     table_ops: str = "auto"
     # Board representation in the train step (identical rollouts):
     # "cells": (N,4,4) int8 boards (reference-shaped, portable);

@@ -2,6 +2,10 @@
 (``tpu2048/ops/dispatch.py``).
 
   "gather": plain torch indexing of the flat table, on any device;
+  "onehot": the 16^2..16^4 classes through exact f32 one-hot matrix
+            products (``onehot.py``), on any device, and plain gathers
+            for the larger classes; refused on the card while TF32 is
+            allowed;
   "pallas": the ``eval_class`` CUDA kernel for the 16^2..16^4 classes
             (its plain version on CPU tensors) and plain gathers for
             the larger classes — the reference's name for its fused
@@ -13,16 +17,18 @@
   "auto":   "pallas" for CUDA tensors, "gather" elsewhere, as the
             reference resolves it on and off the TPU.
 
-"gather" and "pallas" give the same values up to f32 summation order;
-"search" reads the small classes' weights rounded to bf16.  The
-train step's table ops live here too: the evaluator that also returns
-its indices (``make_train_evaluator``), the exact re-evaluation of the
-chosen afterstate (``make_mxu_eval_idx``), the per-class gradient
-blocks (``make_class_grads``) and the table-level accumulator and
-updater of the learners off the canonical form
+"gather", "onehot" and "pallas" give the same values up to f32
+summation order; "search" reads the small classes' weights rounded to
+bf16.  The train step's table ops live here too: the evaluator that
+also returns its indices (``make_train_evaluator``), the exact
+re-evaluation of the chosen afterstate (``make_mxu_eval_idx``), the
+per-class gradient blocks (``make_class_grads``) and the table-level
+accumulator and updater of the learners off the canonical form
 (``make_delta_accumulator``, ``make_updater``), the last three through
-the ``grad_class`` kernel on "pallas".  The reference's "onehot" mode
-is a TPU workaround and is not ported.
+the ``grad_class`` kernel on "pallas".  Under "onehot" these follow
+the reference's branches: the class gradients and the updater take
+the one-hot products, and the train evaluator, the exact
+re-evaluation and the accumulator are "gather"'s.
 
 Under a mesh with a model axis (``mesh=``, ``parallel/mesh.py``) the
 weights these functions take are this rank's shard
@@ -55,22 +61,16 @@ from ..features.ntuple import TupleSet, feature_indices, get_tuple_set
 from . import kernels
 from . import onehot as oh
 
-_NOT_PORTED = {
-    "onehot": 'not ported: the ROADMAP lists one-hot matmuls under "Not '
-              'ported" (a TPU workaround); use "pallas"',
-}
-
 
 def resolve_mode(mode: str, device: torch.device) -> str:
     """"auto" -> "pallas" on CUDA tensors, "gather" elsewhere;
-    "search" -> "search" on CUDA tensors, "gather" elsewhere."""
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(f"table_ops={mode!r} is {_NOT_PORTED[mode]}")
+    "search" -> "search" on CUDA tensors, "gather" elsewhere; "gather",
+    "onehot" and "pallas" as they are, on any device."""
     if mode == "auto":
         return "pallas" if device.type == "cuda" else "gather"
     if mode == "search":
         return "search" if device.type == "cuda" else "gather"
-    if mode not in ("gather", "pallas"):
+    if mode not in ("gather", "onehot", "pallas"):
         raise ValueError(f"unknown table op mode: {mode}")
     return mode
 
@@ -106,6 +106,13 @@ def _gather_feats(n: int, device: torch.device) -> torch.Tensor:
         oh.build_table_classes(get_tuple_set(n)).gather_feats).to(device)
 
 
+def _train_side(resolved: str) -> str:
+    """The train evaluator's and the exact re-evaluation's mode:
+    "onehot" reads the classes by gathers there, as the reference's
+    (``dispatch.py:269``, ``:326``)."""
+    return "gather" if resolved == "onehot" else resolved
+
+
 def _class_value(ts: TupleSet, c: oh.TableClass, weights: torch.Tensor,
                  idx2: torch.Tensor, resolved: str, precision: str,
                  a: int = 0, b: int = -1, lo: int = 0) -> torch.Tensor:
@@ -113,11 +120,13 @@ def _class_value(ts: TupleSet, c: oh.TableClass, weights: torch.Tensor,
     of their weights at the (B, F) feature indices ``idx2``, (B,) f32;
     ``weights`` starts at flat entry ``lo`` (a shard)."""
     b = c.g if b < 0 else b
-    if resolved in ("pallas", "search"):
+    if resolved in ("pallas", "search", "onehot"):
         hl = c.h * c.l
         at = c.start + a * hl - lo
         tables = weights[at: at + (b - a) * hl].view(b - a, c.h, c.l)
         hi, low = oh._hi_lo(ts, idx2, c, a, b)
+        if resolved == "onehot":
+            return oh.class_values(tables, hi, low)
         return kernels.eval_class(tables, hi, low, precision)
     cols = idx2[:, c.feat0 + a: c.feat0 + b]
     return weights[cols - lo if lo else cols].sum(dim=-1)
@@ -129,8 +138,9 @@ def _matmul_class_values(ts: TupleSet, classes: oh.TableClasses,
                          ) -> torch.Tensor:
     """Sum of the 16^2..16^4 classes' weights at the (B, F) feature
     indices ``idx2``, (B,) f32: the ``eval_class`` kernel at
-    ``precision`` on "pallas" and "search", plain f32 gathers on
-    "gather" (where the reference, too, ignores the precision)."""
+    ``precision`` on "pallas" and "search", the one-hot products on
+    "onehot", plain f32 gathers on "gather" (where the reference, too,
+    ignores the precision)."""
     total = torch.zeros(idx2.shape[0], dtype=torch.float32,
                         device=weights.device)
     for c in classes.matmul:
@@ -266,7 +276,7 @@ def make_train_evaluator(ts: TupleSet, mode: str, canonical: bool = False,
         b = flat_boards[..., 0].numel()
         idx = feature_indices(ts, flat_boards)
         idx2 = idx.reshape(b, ts.num_feat)
-        resolved = resolve_mode(mode, weights.device)
+        resolved = _train_side(resolve_mode(mode, weights.device))
         cidx = mult = None
         gidx = None
         if len(classes.gather_feats):
@@ -308,7 +318,7 @@ def make_mxu_eval_idx(ts: TupleSet, mode: str, mesh=None) -> Callable:
     shard = _shard_of(ts, mesh)
 
     def ev(weights: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
-        resolved = resolve_mode(mode, weights.device)
+        resolved = _train_side(resolve_mode(mode, weights.device))
         if shard is None:
             return _matmul_class_values(ts, classes, weights, idx2, resolved)
         [parts] = _model_sum(mesh, _class_parts(
@@ -327,12 +337,13 @@ def make_class_grads(ts: TupleSet, mode: str, mesh=None
     (B,)) -> [pair (2, g, h, l), ...]`` aligned with
     ``classes.matmul``, each pair [dsum; hits] in one contiguous tensor
     (``dsum, hits = pair`` unpacks it): the ``grad_class`` kernel on
-    "pallas" (its plain version on CPU tensors), the plain
-    ``index_add_`` on "gather".  hits are exact; dsum differs between
-    the two only in f32 summation order.  Under a ``mesh`` with a model
-    axis each pair covers the class's tuples ``a .. b - 1`` that this
-    rank holds, (2, b - a, h, l) (``TableShard.tuples``), and is None
-    for a class it holds none of.
+    "pallas" (its plain version on CPU tensors), the one-hot products
+    on "onehot", the plain ``index_add_`` on "gather".  hits are exact;
+    dsum differs between them only in f32 summation order.  Under a
+    ``mesh`` with a model axis each pair covers the class's tuples ``a
+    .. b - 1`` that this rank holds, (2, b - a, h, l)
+    (``TableShard.tuples``), and is None for a class it holds none
+    of.
     """
     resolve_mode(mode, torch.device("cpu"))
     classes = oh.build_table_classes(ts)
@@ -340,8 +351,7 @@ def make_class_grads(ts: TupleSet, mode: str, mesh=None
 
     def fn(idx: torch.Tensor, dw: torch.Tensor, valid: torch.Tensor
            ) -> List[Optional[torch.Tensor]]:
-        grads = (kernels.grad_class if uses_kernels(mode, idx.device)
-                 else kernels.grad_class_reference)
+        grads = _class_grads_fn(resolve_mode(mode, idx.device))
         out = []
         for c in classes.matmul:
             a, b = (0, c.g) if shard is None else shard.tuples(c.feat0, c.g)
@@ -353,6 +363,16 @@ def make_class_grads(ts: TupleSet, mode: str, mesh=None
         return out
 
     return classes, fn
+
+
+def _class_grads_fn(resolved: str) -> Callable:
+    """The class gradient of a resolved mode: the ``grad_class`` kernel's
+    wrapper, the one-hot products, or the plain ``index_add_``."""
+    if resolved in ("pallas", "search"):
+        return kernels.grad_class
+    if resolved == "onehot":
+        return oh.class_grads
+    return kernels.grad_class_reference
 
 
 def _flat_updates(idx: torch.Tensor, dw: torch.Tensor, valid: torch.Tensor,
@@ -380,9 +400,10 @@ def make_delta_accumulator(ts: TupleSet, mode: str, mesh=None) -> Callable:
     table-level optimizers' gradient (temporal coherence off the
     canonical form, and the "fold" learners).
 
-    "gather": two ``index_add_`` into a zeroed pair.  "pallas": one
-    ``grad_class`` pair per 16^2..16^4 class, copied into its columns,
-    and the ``index_add_`` pair over the larger classes' columns only.
+    "gather" (and "onehot", as in the reference): two ``index_add_``
+    into a zeroed pair.  "pallas": one ``grad_class`` pair per
+    16^2..16^4 class, copied into its columns, and the ``index_add_``
+    pair over the larger classes' columns only.
     Both add each entry's terms in row order on the CPU, so there they
     agree bit for bit.  Under a ``mesh`` with a model axis
     ``weights_like`` is this rank's shard and the pair is shard-sized:
@@ -449,8 +470,10 @@ def make_updater(ts: TupleSet, mode: str, mean: bool, mesh=None) -> Callable:
     "pallas": per 16^2..16^4 class one ``grad_class`` pair, whose dsum
     (over hits under ``mean``) is added to the class block; the larger
     classes as "gather", their hits counted over their own columns.
-    Under ``mean`` the two paths round differently, as in the
-    reference: "gather" divides each update, "pallas" each sum.
+    "onehot": the same, each class pair from the one-hot products
+    (the reference's ``onehot_update``).  Under ``mean`` the paths
+    round differently, as in the reference: "gather" divides each
+    update, "pallas" and "onehot" each sum.
 
     Under a ``mesh`` (``parallel/mesh.py``) the rows are this rank's
     and the update is the global batch's: each class pair is
@@ -478,15 +501,17 @@ def make_updater(ts: TupleSet, mode: str, mean: bool, mesh=None) -> Callable:
 
     def update(weights: torch.Tensor, idx: torch.Tensor, dw: torch.Tensor,
                valid: torch.Tensor) -> torch.Tensor:
-        if not uses_kernels(mode, weights.device):
+        resolved = resolve_mode(mode, weights.device)
+        if resolved not in ("pallas", "search", "onehot"):
             scatter(weights, idx, dw, valid)
             return weights
+        grads = _class_grads_fn(resolved)
         for c in classes.matmul:
             a, b = (0, c.g) if shard is None else shard.tuples(c.feat0, c.g)
             if a == b:
                 continue
             hi, low = oh._hi_lo(ts, idx, c, a, b)
-            pair = kernels.grad_class(hi, low, dw, valid, c.h, c.l)
+            pair = grads(hi, low, dw, valid, c.h, c.l)
             if mesh is not None:
                 mesh.all_reduce(pair)
             dsum, hits = pair
@@ -496,8 +521,8 @@ def make_updater(ts: TupleSet, mode: str, mean: bool, mesh=None) -> Callable:
             at = c.start + a * c.h * c.l - lo
             weights[at: at + size] += dsum.reshape(size)
         if len(classes.gather_feats):
-            scatter(weights, idx[:, _gather_feats(ts.n, idx.device)], dw,
-                    valid)
+            scatter(weights, idx[:, _gather_feats(ts.n, idx.device)],
+                    dw, valid)
         return weights
 
     return update
