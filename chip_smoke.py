@@ -177,12 +177,22 @@ Phases, one line of output each (the kernel phases one per check):
      depth-1 search), and ``torch_eval_native.py --num 4 --depth 1``;
      each must exit 0 and print its result line, and the kernels'
      launches in each run are printed (read in the script's own
-     process after it ends).
+     process after it ends);
+ 21. bench: ``torch_bench.py`` as a subprocess at its shipped sizes: its
+     last line must hold ``bench.py``'s keys in their order, with every
+     rate finite and positive, and its row lines the kernels' launches
+     of each row: all three in the defaults and n=6 train rows,
+     ``eval_class`` in the pinned n=4 row (its other counts printed as
+     read), ``eval_class`` alone in the eval rows and none in the
+     engine row; the line is printed on a ``bench`` line.  Then each
+     script twin once at reduced sizes (``torch_bench_sweep.py`` one
+     point per stage, ``torch_bench_search.py`` 16 games,
+     ``torch_bench_ops.py`` n=4 at 8192 envs), each with its launches.
 
 Then a JSON line of the kernels of the paths (name, route,
 source, the TPU kernel it replaces, its launches in the serve, train,
 search, train_variant, flagship, n7, mesh, apps, model_axis (the two
-ranks' sum) and drivers runs, its largest error
+ranks' sum), drivers and bench (the rows' sum) runs, its largest error
 against the plain
 version, its, the plain version's and the library call's time in ms,
 and its bound:
@@ -228,6 +238,26 @@ ONEHOT_B = 4 * TRAIN_B  # phase 19's evaluator rows: the selection's
 ONEHOT_STEPS = 8  # steps timed per run in phase 19
 DRIVER_EPISODES = 2000  # phase 20's train twin: a few segments
 DRIVER_TIMEOUT = 300  # seconds for one driver of phase 20, then it is killed
+BENCH_TIMEOUT = 600  # seconds for phase 21's torch_bench.py, then it is killed
+# bench.py's line, key for key in its order (bench.py:182-204)
+BENCH_METRIC = "train_env_steps_per_sec_1chip_defaults"
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "train_n4_pinned_sps",
+              "train_n6_flagship_sps", "engine_env_steps_per_sec",
+              "engine_vs_north_star_10M", "eval_env_steps_per_sec",
+              "eval_n4_env_steps_per_sec", "eval_n4_bf16_env_steps_per_sec"]
+# the kernels each bench row launches (none elsewhere), but for the
+# pinned n=4 row: eval_class at least, its other counts as read
+_ALL3 = frozenset({"eval_class", "grad_class", "fold_class"})
+BENCH_LAUNCH = {
+    "value": _ALL3,
+    "train_n4_pinned_sps": {"eval_class"},
+    "train_n6_flagship_sps": _ALL3,
+    "engine_env_steps_per_sec": set(),
+    "eval_env_steps_per_sec": {"eval_class"},
+    "eval_n4_env_steps_per_sec": {"eval_class"},
+    "eval_n4_bf16_env_steps_per_sec": {"eval_class"},
+}
+BENCH_AS_READ = "train_n4_pinned_sps"
 APP_TEST_GAMES = 1000
 APP_WATCH_FRAMES = 10
 APP_WAIT_S = 300  # the longest phase 16 waits for one job
@@ -2498,10 +2528,11 @@ print("driver_launches: " + json.dumps({k.__name__: k.launches for k in (
 """
 
 
-def _driver(home: str, script: str, *args, want: str) -> tuple:
-    """One driver of phase 20 as a subprocess, from the repo's root with
-    ``HOME`` at ``home``: (its launches, its line starting with
-    ``want``, seconds)."""
+def _run_script(home: str, script: str, *args,
+                timeout: float = DRIVER_TIMEOUT) -> tuple:
+    """A script of the repo (``script``: its path from the repo's root)
+    as a subprocess, from the repo's root with ``HOME`` at ``home``:
+    (the kernels' launches in its process, its output lines, seconds)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "HOME": home,
            "TPU2048_NATIVE_DIR": os.path.join(home, "native")}
@@ -2509,19 +2540,25 @@ def _driver(home: str, script: str, *args, want: str) -> tuple:
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-c", _DRIVER_WRAP,
-         os.path.join(root, "scripts", script), *map(str, args)],
-        cwd=root, env=env, capture_output=True, text=True,
-        timeout=DRIVER_TIMEOUT)
+         os.path.join(root, script), *map(str, args)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=timeout)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"{script} exited {proc.returncode}: "
                              f"{proc.stderr[-2000:]}")
     lines = proc.stdout.splitlines()
-    launches = json.loads(lines[-1].split(": ", 1)[1])
+    return json.loads(lines[-1].split(": ", 1)[1]), lines[:-1], seconds
+
+
+def _driver(home: str, script: str, *args, want: str) -> tuple:
+    """One driver of phase 20 (``scripts/<script>``): (its launches, its
+    line starting with ``want``, seconds)."""
+    launches, lines, seconds = _run_script(
+        home, os.path.join("scripts", script), *args)
     found = [ln for ln in lines if ln.startswith(want)]
     if not found:
         raise AssertionError(f"{script} printed no line {want!r}: "
-                             f"{proc.stdout[-2000:]}")
+                             f"{lines[-40:]}")
     return launches, found[-1], seconds
 
 
@@ -2568,6 +2605,82 @@ def phase_drivers() -> dict:
     return total
 
 
+def _bench_line(lines: list) -> dict:
+    """``torch_bench.py``'s last line, held to ``bench.py``'s keys, order
+    and metric, with every rate finite and positive."""
+    result = json.loads(lines[-1])
+    if list(result) != BENCH_KEYS or result["metric"] != BENCH_METRIC or \
+            result["unit"] != "env-steps/s":
+        raise AssertionError(f"torch_bench's line is not bench.py's: "
+                             f"{lines[-1]}")
+    for k, v in result.items():
+        if k not in ("metric", "unit") and not (
+                isinstance(v, (int, float)) and np.isfinite(v) and v > 0):
+            raise AssertionError(f"torch_bench: {k} = {v!r}")
+    return result
+
+
+def _bench_rows(lines: list) -> dict:
+    """Each ``# row <key>: {...}`` line of ``torch_bench.py``, by key,
+    held to the launches each row must and must not make."""
+    rows = {ln[len("# row "):].split(": ", 1)[0]:
+            json.loads(ln.split(": ", 1)[1])
+            for ln in lines if ln.startswith("# row ")}
+    if list(rows) != list(BENCH_LAUNCH):
+        raise AssertionError(f"torch_bench's rows: {list(rows)}")
+    for key, want in BENCH_LAUNCH.items():
+        launches = rows[key]["launches"]
+        launched = {k for k, v in launches.items() if v}
+        if not (want <= launched if key == BENCH_AS_READ
+                else want == launched):
+            raise AssertionError(f"torch_bench row {key} launched "
+                                 f"{launches}")
+        if rows[key]["reps_s"] is None or rows[key]["reps_s"]["min"] <= 0:
+            raise AssertionError(f"torch_bench row {key}: {rows[key]}")
+    return rows
+
+
+def phase_bench() -> dict:
+    """Phase 21: ``torch_bench.py`` and its script twins as subprocesses
+    on the card (see the module doc).  Returns the kernels' launches of
+    the bench's rows."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as home:
+        _, lines, seconds = _run_script(home, "torch_bench.py",
+                                        timeout=BENCH_TIMEOUT)
+        result = _bench_line(lines)
+        rows = _bench_rows(lines)
+        total = {k: sum(r["launches"][k] for r in rows.values())
+                 for k in ("eval_class", "grad_class", "fold_class")}
+        _line("bench", line=result, card=lines[0][2:], rows=rows,
+              launches=total, seconds=seconds)
+        twins = {
+            "torch_bench_sweep.py": (["--envs", TRAIN_B, "--k", 128],
+                                     ["train n_envs=", "engine n_envs=",
+                                      "eval n_envs="], _ALL3),
+            "torch_bench_search.py": ([5, 16], ["leaf eval [search]",
+                                                "afterstates_nc",
+                                                "tree [search] depth=3"],
+                                      ("eval_class",)),
+            "torch_bench_ops.py": ([4, TRAIN_B], ["eval pallas",
+                                                  "upd  pallas",
+                                                  "raw gather table="],
+                                   ("eval_class", "grad_class")),
+        }
+        for script, (args, want, must) in twins.items():
+            launches, out, seconds = _run_script(
+                home, os.path.join("scripts", script), *args)
+            missing = [w for w in want
+                       if not any(ln.startswith(w) for ln in out)]
+            if missing or not all(launches[k] for k in must):
+                raise AssertionError(f"{script}: lines {missing} missing or "
+                                     f"launches {launches}: {out[-40:]}")
+            _line("bench_script", script=script, args=args, card=out[0],
+                  lines=out[1:], launches=launches, seconds=seconds)
+    _line("bench_phase", seconds=time.perf_counter() - t0)
+    return total
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -2596,6 +2709,7 @@ def main() -> int:
     model_axis = phase_model_axis(kstats)
     phase_onehot()
     drivers = phase_drivers()
+    bench = phase_bench()
     loaded = sorted(m for m in sys.modules if m == "jax" or m == "tpu2048"
                     or m.startswith(("jax.", "tpu2048.")))
     if loaded:
@@ -2611,7 +2725,7 @@ def main() -> int:
         "source": f"tpu2048_torch/ops/csrc/{k}.cu",
         "replaces": replaces[k],
         "launches": train[k] + variant[k] + flagship[k] + n7[k] + meshed[k]
-        + apps[k] + model_axis[k] + drivers[k]
+        + apps[k] + model_axis[k] + drivers[k] + bench[k]
         + (serve + search if k == "eval_class" else 0),
         "launches_by_path": {"serve": serve if k == "eval_class" else 0,
                              "train": train[k],
@@ -2620,7 +2734,7 @@ def main() -> int:
                              "flagship": flagship[k], "n7": n7[k],
                              "mesh": meshed[k], "apps": apps[k],
                              "model_axis": model_axis[k],
-                             "drivers": drivers[k]},
+                             "drivers": drivers[k], "bench": bench[k]},
         "bound_by": "bytes",
         # the same two readings under this round's names
         "bound_us": 1e3 * kstats[k]["bound_ms"],
