@@ -188,11 +188,25 @@ Phases, one line of output each (the kernel phases one per check):
      script twin once at reduced sizes (``torch_bench_sweep.py`` one
      point per stage, ``torch_bench_search.py`` 16 games,
      ``torch_bench_ops.py`` n=4 at 8192 envs), each with its launches.
+ 22. breakdown: the step-breakdown, scaling and index-check twins as
+     subprocesses (``BREAKDOWN_RUNS``): ``torch_bench_engine_breakdown.py``
+     and ``torch_bench_train_breakdown.py`` at their defaults,
+     ``torch_bench_canon_breakdown.py`` at n=5 and 8192 envs,
+     ``torch_bench_scaling.py`` at worlds 1, 2 and 4 (gloo ranks sharing
+     the card) and ``torch_check_indices.py``; each must exit 0 and print
+     every row label of its reference script (``_reference_rows``), in
+     order, with a finite, positive number and a comment line of its
+     launches and device µs; the canonical breakdown must launch all
+     three kernels, the scaling line hold the reference's keys with
+     positive rates, and the index check find every index exact with and
+     without TF32; each script's lines, launches and seconds are
+     printed.
 
 Then a JSON line of the kernels of the paths (name, route,
 source, the TPU kernel it replaces, its launches in the serve, train,
 search, train_variant, flagship, n7, mesh, apps, model_axis (the two
-ranks' sum), drivers and bench (the rows' sum) runs, its largest error
+ranks' sum), drivers, bench (the rows' sum) and breakdown (the five
+scripts' sum) runs, its largest error
 against the plain
 version, its, the plain version's and the library call's time in ms,
 and its bound:
@@ -212,6 +226,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -258,6 +273,16 @@ BENCH_LAUNCH = {
     "eval_n4_bf16_env_steps_per_sec": {"eval_class"},
 }
 BENCH_AS_READ = "train_n4_pinned_sps"
+# phase 22: twin script -> (its reference, arguments, kernels it must launch)
+BREAKDOWN_RUNS = {
+    "torch_bench_engine_breakdown.py": ("bench_engine_breakdown.py", [], ()),
+    "torch_bench_train_breakdown.py": ("bench_train_breakdown.py", [], ()),
+    "torch_bench_canon_breakdown.py": ("bench_canon_breakdown.py",
+                                       [5, TRAIN_B], _ALL3),
+    "torch_bench_scaling.py": ("bench_scaling.py", ["--worlds", 1, 2, 4], ()),
+    "torch_check_indices.py": ("check_indices_tpu.py", [], ()),
+}
+SCALING_KEYS = ["metric", "rows", "allreduce_mb_per_step", "note"]
 APP_TEST_GAMES = 1000
 APP_WATCH_FRAMES = 10
 APP_WAIT_S = 300  # the longest phase 16 waits for one job
@@ -2515,13 +2540,17 @@ def phase_onehot() -> None:
           seconds=time.perf_counter() - t0)
 
 
-# runs a driver as ``python3 script args`` would, then prints the
-# kernels' launches in its process
+# runs a driver as ``python3 script args`` would, then, if it exited 0,
+# prints the kernels' launches in its process
 _DRIVER_WRAP = """
 import json, runpy, sys
 script = sys.argv[1]
 sys.argv = sys.argv[1:]
-runpy.run_path(script, run_name="__main__")
+try:
+    runpy.run_path(script, run_name="__main__")
+except SystemExit as e:
+    if e.code not in (None, 0):
+        raise
 from tpu2048_torch.ops import kernels
 print("driver_launches: " + json.dumps({k.__name__: k.launches for k in (
     kernels.eval_class, kernels.grad_class, kernels.fold_class)}))
@@ -2681,6 +2710,113 @@ def phase_bench() -> dict:
     return total
 
 
+def _reference_rows(ref: str) -> list:
+    """The row labels that the reference script ``scripts/<ref>``
+    prints, in order, each as a regex (a format field matches any
+    text): the names its breakdown passes to ``timed``, or else the
+    first string of each ``print(f"...")`` up to its last ":" once its
+    fields are blanked (a line with no ":" is a geometry line; a mode's
+    "skipped" report is no row)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "scripts", ref)) as f:
+        src = f.read()
+    names = re.findall(r'timed\("([^"]+)"', src)
+    if names:
+        return [re.escape(x) for x in names]
+    pats = []
+    for lit in re.findall(r'print\(\s*f"([^"]*)"', src):
+        lit = re.sub(r"\{[^}]*\}", "\0", lit)
+        if "skipped" in lit or ":" not in lit:
+            continue
+        label = lit.rsplit(":", 1)[0].rstrip()
+        pats.append(".+?".join(re.escape(x) for x in label.split("\0")))
+    return pats
+
+
+def _row_labels(script: str, ref: str, lines: list) -> tuple:
+    """A breakdown twin's row lines (all but its first line, comments and
+    its geometry line) and their labels (each line up to its last ": "),
+    held to its reference's labels in order (a label with a field may
+    repeat: a loop's rows): (labels, rows)."""
+    rows = [ln for ln in lines[1:] if not ln.startswith(("#", "device="))]
+    labels = [ln.rsplit(": ", 1)[0].rstrip() for ln in rows]
+    at = 0
+    for pat in _reference_rows(ref):
+        if at >= len(labels) or not re.fullmatch(pat, labels[at]):
+            raise AssertionError(f"{script}: no row {pat!r} at {labels[at:]}")
+        at += 1
+        while ("+?" in pat and at < len(labels)
+               and re.fullmatch(pat, labels[at])):
+            at += 1
+    if at != len(labels):
+        raise AssertionError(f"{script}: rows beyond the reference's: "
+                             f"{labels[at:]}")
+    return labels, rows
+
+
+def _breakdown_rows(script: str, ref: str, lines: list) -> dict:
+    """A breakdown twin's rows (``_row_labels``), each with a finite,
+    positive number after its label and a comment line of its launches
+    (at least one) and device µs: {label: (its line, its comment
+    line)}."""
+    out = {}
+    labels, rows = _row_labels(script, ref, lines)
+    for label, ln in zip(labels, rows):
+        value = float(ln.rsplit(": ", 1)[1].split()[0].rstrip("M"))
+        cost = [c for c in lines if c.startswith(f"# {label}: ")]
+        launched = re.match(r"([0-9.]+) launches, ([0-9.]+) device us",
+                            cost[0][len(label) + 4:]) if cost else None
+        if not (np.isfinite(value) and value > 0) or len(cost) != 1 or \
+                not launched or not float(launched[1]) > 0:
+            raise AssertionError(f"{script}: row {ln!r}, cost {cost}")
+        out[label] = (ln, cost[0])
+    return out
+
+
+def _scaling_line(lines: list) -> dict:
+    """The scaling twin's JSON line: the reference's keys, one row per
+    world with a finite, positive rate."""
+    result = json.loads(lines[-1])
+    worlds = BREAKDOWN_RUNS["torch_bench_scaling.py"][1][1:]
+    if list(result) != SCALING_KEYS or \
+            [r["devices"] for r in result["rows"]] != worlds or \
+            not all(np.isfinite(r["env_steps_per_sec"])
+                    and r["env_steps_per_sec"] > 0 for r in result["rows"]):
+        raise AssertionError(f"torch_bench_scaling.py: {lines[-1]}")
+    return result
+
+
+def phase_breakdown() -> dict:
+    """Phase 22: the breakdown, scaling and index-check twins as
+    subprocesses on the card (see the module doc).  Returns the kernels'
+    launches in their processes."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(sorted(_ALL3), 0)
+    with tempfile.TemporaryDirectory() as home:
+        for script, (ref, args, must) in BREAKDOWN_RUNS.items():
+            launches, lines, seconds = _run_script(
+                home, os.path.join("scripts", script), *args)
+            if script == "torch_bench_scaling.py":
+                got = _scaling_line(lines)
+            elif script == "torch_check_indices.py":
+                if lines[-1] != ("all geometries exact on device, with and "
+                                 "without TF32"):
+                    raise AssertionError(f"{script}: {lines[-20:]}")
+                got = lines[1:]
+            else:
+                got = _breakdown_rows(script, ref, lines)
+            if not all(launches[k] for k in must):
+                raise AssertionError(f"{script} launched {launches}, not "
+                                     f"each of {sorted(must)}")
+            for k, v in launches.items():
+                total[k] += v
+            _line("breakdown_script", script=script, args=args,
+                  card=lines[0], result=got, launches=launches,
+                  seconds=seconds)
+    _line("breakdown", launches=total, seconds=time.perf_counter() - t0)
+    return total
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -2710,6 +2846,7 @@ def main() -> int:
     phase_onehot()
     drivers = phase_drivers()
     bench = phase_bench()
+    breakdown = phase_breakdown()
     loaded = sorted(m for m in sys.modules if m == "jax" or m == "tpu2048"
                     or m.startswith(("jax.", "tpu2048.")))
     if loaded:
@@ -2725,7 +2862,7 @@ def main() -> int:
         "source": f"tpu2048_torch/ops/csrc/{k}.cu",
         "replaces": replaces[k],
         "launches": train[k] + variant[k] + flagship[k] + n7[k] + meshed[k]
-        + apps[k] + model_axis[k] + drivers[k] + bench[k]
+        + apps[k] + model_axis[k] + drivers[k] + bench[k] + breakdown[k]
         + (serve + search if k == "eval_class" else 0),
         "launches_by_path": {"serve": serve if k == "eval_class" else 0,
                              "train": train[k],
@@ -2734,7 +2871,8 @@ def main() -> int:
                              "flagship": flagship[k], "n7": n7[k],
                              "mesh": meshed[k], "apps": apps[k],
                              "model_axis": model_axis[k],
-                             "drivers": drivers[k], "bench": bench[k]},
+                             "drivers": drivers[k], "bench": bench[k],
+                             "breakdown": breakdown[k]},
         "bound_by": "bytes",
         # the same two readings under this round's names
         "bound_us": 1e3 * kstats[k]["bound_ms"],

@@ -35,6 +35,10 @@ measures two checkouts alike.  Draws come from a ``torch.Generator``
 seeded with 0.  The full result is written as JSON to ``--out``
 (default ``chiprun_out/train_profile.json``).  Needs one CUDA card;
 imports no jax.
+
+The traces are read with the profiled checkout's
+``obs.profiler.device_events``, so ``--root`` must name a checkout
+that has it.
 """
 
 from __future__ import annotations
@@ -45,7 +49,6 @@ import os
 import statistics
 import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
@@ -95,21 +98,6 @@ def _kind(name: str) -> str:
         if pat in name:
             return kind
     return "other"
-
-
-def _device_events(prof) -> list:
-    """(name, start µs, duration µs) of every kernel, memset and copy
-    the card ran under ``prof``, in start order, from its chrome
-    trace."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    events = [(e["name"], float(e["ts"]), float(e.get("dur", 0.0)))
-              for e in trace["traceEvents"]
-              if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
-    return sorted(events, key=lambda e: e[1])
 
 
 def _grad_parts(events: list) -> list:
@@ -163,7 +151,7 @@ def _grad_inputs(g, h, l, b, seed, collide):
     return [torch.from_numpy(a).cuda() for a in (hi, lo, dw, valid)]
 
 
-def _grad_call_profile(kernels, collide: bool) -> dict:
+def _grad_call_profile(kernels, device_events, collide: bool) -> dict:
     """``CALLS`` grad_class calls queued behind a sleep kernel, traced:
     per call the fills, the scatter, the idle gaps inside the call,
     and the period from one call's end to the next."""
@@ -176,7 +164,7 @@ def _grad_call_profile(kernels, collide: bool) -> dict:
         for _ in range(CALLS):
             kernels.grad_class(*args, h, l)
         torch.cuda.synchronize()
-    parts = _grad_parts(_device_events(prof))
+    parts = _grad_parts(device_events(prof))
     calls = []
     for p in parts:
         spans = sorted((e[1], e[1] + e[2]) for e in p["fills"] + [p["grad"]])
@@ -230,6 +218,7 @@ def main() -> int:
     from tpu2048_torch.config import AgentConfig, TrainConfig
     from tpu2048_torch.draws import TorchDraws
     from tpu2048_torch.features.ntuple import get_tuple_set
+    from tpu2048_torch.obs.profiler import device_events
     from tpu2048_torch.ops import kernels
 
     card = subprocess.run(
@@ -305,11 +294,12 @@ def main() -> int:
         print(f"kind: {json.dumps(row)}", flush=True)
     for e in table[:20]:
         print(f"kernel: {json.dumps(e)}", flush=True)
-    stretch = _stretch_summary(_grad_parts(_device_events(prof)))
+    stretch = _stretch_summary(_grad_parts(device_events(prof)))
     print(f"grad_stretch: {json.dumps(stretch)}", flush=True)
     del prof
 
-    calls = [_grad_call_profile(kernels, collide) for collide in (False, True)]
+    calls = [_grad_call_profile(kernels, device_events, collide)
+             for collide in (False, True)]
     for c in calls:
         print(f"grad_call: {json.dumps(c)}", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

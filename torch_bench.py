@@ -35,7 +35,7 @@ from tpu2048_torch.config import AgentConfig, TrainConfig
 from tpu2048_torch.draws import TorchDraws
 from tpu2048_torch.engine import fast as eng
 from tpu2048_torch.features import ntuple
-from tpu2048_torch.obs.profiler import device_trace
+from tpu2048_torch.obs.profiler import device_events, device_trace
 from tpu2048_torch.ops import dispatch, kernels
 from tpu2048_torch.ops.build import load_library
 from tpu2048_torch.train import card_device
@@ -113,6 +113,48 @@ def timeit(fn, *args, device: torch.device, reps: int = 5) -> float:
     return (time.time() - t0) / reps
 
 
+def device_cost(fn, device: torch.device, calls: int = 1):
+    """Launches (kernels, memsets and copies) and device µs per call,
+    read from a ``torch.profiler`` trace of ``fn()``, which makes
+    ``calls`` calls: {"launches": x, "device_us": y, "kernels": {name:
+    {"launches": per call, "us_each": device µs per launch}}} (the
+    port's kernels that ran), or None off the card, where no device
+    work is traced."""
+    if device.type != "cuda":
+        return None
+    sync(device)
+    # with the host's activity too: a trace of the card's alone dropped
+    # most of the long kernels of a call on the H100
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(device)
+    events = device_events(prof)
+    kernels_us = {}
+    for kern in KERNELS:
+        mine = [e[2] for e in events if kern.__name__ in e[0]]
+        if mine:
+            kernels_us[kern.__name__] = {"launches": len(mine) / calls,
+                                         "us_each": sum(mine) / len(mine)}
+    return {"launches": len(events) / calls,
+            "device_us": sum(e[2] for e in events) / calls,
+            "kernels": kernels_us}
+
+
+def cost_line(label: str, cost, per: str = "call") -> str:
+    """A comment line of ``device_cost``'s reading for a row."""
+    if cost is None:
+        return f"# {label}: launches and device us per {per} not measured " \
+               f"(no card)"
+    line = (f"# {label}: {cost['launches']:.2f} launches, "
+            f"{cost['device_us']:.2f} device us per {per}")
+    for name, k in cost["kernels"].items():
+        line += (f"; {name} {k['launches']:.2f} per {per} at "
+                 f"{k['us_each']:.2f} us each")
+    return line
+
+
 def seeded_generator(device: torch.device, seed: int) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -141,6 +183,31 @@ def bench_train(n_envs=8192, k=64, reps=8, acfg=None, record_envs=-1,
     seg = td.make_train_segment(ts, acfg, tcfg, draws)
     dt = time_reps(seg, state, reps, device, reps_s)
     return reps * k * n_envs / dt
+
+
+def first_move(codes: torch.Tensor) -> torch.Tensor:
+    """Direction 0's afterstate of each board where any move is legal,
+    the board itself where none is; no spawn."""
+    aft, _delta, legal, _t = eng.afterstates_full(codes)
+    return torch.where(legal.any(dim=0)[:, None], aft[0], codes)
+
+
+def rolled_codes(n_envs: int, draws, moves: int = 3) -> torch.Tensor:
+    """Fresh boards rolled ``moves`` times by ``first_move``: the
+    breakdown scripts' mid-game-ish boards."""
+    codes = eng.new_codes(n_envs, draws)
+    for _ in range(moves):
+        codes = first_move(codes)
+    return codes
+
+
+def afterstate_cells(aft: torch.Tensor) -> torch.Tensor:
+    """(4, N, 4) afterstate codes -> (4, N, 16) cells, directions 1 and
+    3 transposed back to the board's own orientation."""
+    tperm = torch.arange(16, device=aft.device).reshape(4, 4).T.reshape(16)
+    cells4 = eng.cells_from_codes(aft)
+    return torch.stack([cells4[0], cells4[1][..., tperm],
+                        cells4[2], cells4[3][..., tperm]])
 
 
 def engine_roll(codes: torch.Tensor, draws, k: int) -> torch.Tensor:
@@ -177,14 +244,10 @@ def eval_roll(eval_fn, w: torch.Tensor, codes: torch.Tensor, draws,
     back), the best legal one taken, a spawn, a fresh board where no
     move is legal."""
     n = codes.shape[0]
-    tperm = torch.arange(16, device=codes.device).reshape(4, 4).T.reshape(16)
     ar = torch.arange(n, device=codes.device)
     for _ in range(k):
         aft, _delta, legal, _t = eng.afterstates_full(codes)
-        cells4 = eng.cells_from_codes(aft)
-        cells4 = torch.stack([cells4[0], cells4[1][..., tperm],
-                              cells4[2], cells4[3][..., tperm]])
-        vals = eval_fn(w, cells4)
+        vals = eval_fn(w, afterstate_cells(aft))
         masked = torch.where(legal, vals, float("-inf"))
         # the first maximal direction, as jnp.argmax takes it
         bd = masked.argmax(dim=0).to(torch.int32)

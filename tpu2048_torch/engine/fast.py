@@ -132,6 +132,16 @@ def afterstates_full(
     return aft, delta, legal, tcodes
 
 
+def afterstates_codes(
+    codes: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """All 4 afterstates of a (N, 4) code batch: (aft (4, N, 4) int32,
+    delta (4, N) int32, legal (4, N) bool), directions 1 and 3
+    TRANSPOSED; ``afterstates_full`` without the transposed codes."""
+    aft, delta, legal, _t = afterstates_full(codes)
+    return aft, delta, legal
+
+
 @lru_cache(maxsize=None)
 def _nc_pair(device: torch.device) -> torch.Tensor:
     """The (65536, 2) [left_nc, right_nc] table on ``device``."""
@@ -159,6 +169,23 @@ def afterstates_nc(
     aft = (nc & 0xFFFF).permute(3, 0, 1, 2).reshape(4, n, 4)
     legal = (nc >> 16).any(dim=2).permute(2, 0, 1).reshape(4, n)
     return aft, legal, tcodes
+
+
+@lru_cache(maxsize=None)
+def _dir_sc(device: torch.device) -> torch.Tensor:
+    """The (131072,) [left_sc; right_sc] score table on ``device``."""
+    return torch.from_numpy(build_code_tables().dir_sc).to(device)
+
+
+def chosen_delta(codes: torch.Tensor, tcodes: torch.Tensor,
+                 best_dir: torch.Tensor) -> torch.Tensor:
+    """Score gained by the chosen direction only, (N,) int32: four
+    gathers from ``dir_sc``.  Directions 0 and 2 score the codes, 1 and
+    3 the transposed codes ``tcodes``; the left/right family picks the
+    table's half."""
+    cot = torch.where((best_dir % 2 == 1)[:, None], tcodes, codes)
+    fam = (best_dir >= 2).to(torch.int32)[:, None] << 16
+    return _dir_sc(codes.device)[cot | fam].sum(dim=-1, dtype=torch.int32)
 
 
 def canonicalize_chosen(aft_codes: torch.Tensor, best_dir: torch.Tensor

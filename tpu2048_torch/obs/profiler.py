@@ -1,14 +1,18 @@
 """Profiling hooks of the port (``tpu2048/obs/profiler.py``): a timing
 context for the host loop (``Timer``, copied), and ``device_trace``,
 the reference's ``jax.profiler`` capture done with ``torch.profiler``:
-a trace that TensorBoard's profiler plugin and Perfetto read.
+a trace that TensorBoard's profiler plugin and Perfetto read;
+``device_events`` lists the card's work in a ``torch.profiler``
+trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import socket
+import tempfile
 import time
 from typing import Dict, Iterator, Optional
 
@@ -83,3 +87,18 @@ def device_trace(logdir: Optional[str]) -> Iterator[None]:
                         for e in prof.profiler.kineto_results.events()):
         raise RuntimeError("device_trace: the trace recorded no activity on "
                            "the CUDA card")
+
+
+def device_events(prof) -> list:
+    """(name, start µs, duration µs) of every kernel, memset and copy
+    the card ran under the finished ``torch.profiler`` run
+    ``prof``, in start order, from its Chrome trace."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = [(e["name"], float(e["ts"]), float(e.get("dur", 0.0)))
+              for e in trace["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+    return sorted(events, key=lambda e: e[1])
