@@ -32,13 +32,21 @@ Phases, one line of output each (the kernel phases one per check):
      contiguous (2, G, H, L) pair, hits bitwise, dsum within hits *
      2^-23 * (sum of |dw| at the entry), the bound between two f32
      summation orders, and the whole pair bitwise with dyadic dw on
-     the same rows; a valid row's bad index shows as NaN; then kernel,
+     the same rows; a second launch on each input with non-dyadic dw
+     gives the same bits, and so does the kernel's arithmetic in plain
+     PyTorch (``grad_class_ordered``); a valid row's bad index shows as
+     NaN; then kernel,
      plain and library (``index_add_`` pair) times beside the bound,
      the earlier reading and each case's collision profile (distinct
      entries per tuple, the most rows on one entry) for the random,
      colliding and fresh-start rows, and, after phase 8, the same
      check and times on the rows of the trainer's last step
-     (mid-training);
+     (mid-training); then ``cross_apply``, the crosses' sparse update of
+     the canonical learner, on the crosses of a fresh start's step and
+     of the trainer's last step: the same bits twice and those of its
+     arithmetic in plain PyTorch (``cross_apply_ordered``), within the
+     summation-order bound of its term-by-term plain version on the
+     card and on the CPU, and timed beside its bound;
   6. fold_class: the D4 class-fold kernel bitwise against the plain
      ``symmetrize_class_sum`` on random pairs (the 16^4 class at n=4
      and n=5, the 16^3 class at n=3, the 16^2 class at n=2); then
@@ -51,8 +59,8 @@ Phases, one line of output each (the kernel phases one per check):
      recorder rows bitwise, the weights and TC sums within 2^-17 of the
      table's largest entry;
   8. train: ``Trainer.run`` at the shipped defaults (n=5, 8192 envs,
-     K=64) for 12 segments: every step launched each kernel, the
-     weights are finite, episodes completed, the saved best game
+     K=64) for 12 segments: every step launched each kernel and
+     ``cross_apply`` once, the weights are finite, episodes completed, the saved best game
      replays to its score, and the checkpoint loads through the port's
      ``load_agent`` and plays 256 games; env-steps/s, wall per
      segment, and the ma-100 of the first and last windows (the
@@ -87,10 +95,12 @@ Phases, one line of output each (the kernel phases one per check):
      ``grad_class`` once, ``fold_class`` never; the weights finite,
      the best game replays; the checkpoint resumes on the card (its
      generator's stream continued) and on the CPU (a fresh stream,
-     logged); env-steps/s and the first and last ma-100;
+     logged); a second run from the seed holds the same bits in every
+     state leaf and result; env-steps/s and the first and last ma-100;
  12. flagship: at n=6 (95.7 M entries) and n=7 (206.6 M) one train
      step of 8192 envs on the card against the CPU, checked as in phase
-     10; then ``Trainer.run`` of ``AgentConfig(n=6)`` at the shipped
+     10, and at n=6 one step twice on the card from one state, every
+     leaf bitwise; then ``Trainer.run`` of ``AgentConfig(n=6)`` at the shipped
      ``TrainConfig()`` width (8192 envs, all recorded, K=64) for 8
      segments: every kernel launched on every step, the ma-100 rises,
      the best game replays, the checkpoint loads and plays 256 games;
@@ -103,10 +113,12 @@ Phases, one line of output each (the kernel phases one per check):
      defaults at full width through the mesh and one without it, from
      one seed: launches per step, collectives per step and their bytes
      (counted by ``Mesh``, held against the step's shapes), env-steps/s
-     of both as a reading, and how many games differ after the segment
-     between the two and between two unmeshed runs (the card's atomics
-     add in no fixed order and temporal coherence amplifies the
-     difference, so whole runs are not held bitwise: steps are);
+     of both as a reading; then each run on to REPEAT_SEGMENTS segments:
+     the two unmeshed runs must hold the same bits (no game differs;
+     every state leaf, the rings' trash slot and the logs' spill column
+     included, and the run's results bitwise: every float sum on the
+     card runs in a fixed order), and the games that differ between the
+     mesh run and an unmeshed one are printed;
  14. fixed_order: ``scatter_add_ordered``, the sparse apply of the mesh
      path, twice on the card from one non-dyadic, heavily colliding
      list: bitwise the same table, and within the summation-order bound
@@ -135,8 +147,9 @@ Phases, one line of output each (the kernel phases one per check):
      moves/s and each job's launches;
  17. trace: ``Trainer.run(trace_dir=...)`` of the defaults at the shipped
      width for TRACE_SEGMENTS segments: the ``torch.profiler`` trace holds
-     one kernel event per launch of each wrapper (and ``grad_class``'s
-     fill) among the step's other kernels; its bytes, events, kernel
+     one kernel event per launch of each wrapper (four for
+     ``grad_class``: its count, scan, place and reduce; two for
+     ``cross_apply``) among the step's other kernels; its bytes, events, kernel
      events per step and the kernels' histogram by device time, and
      env-steps/s beside an untraced run's, as a reading;
  18. model_axis: the mesh's model axis.  First the tuple-range launches
@@ -203,10 +216,12 @@ Phases, one line of output each (the kernel phases one per check):
      printed.
 
 Then a JSON line of the kernels of the paths (name, route,
-source, the TPU kernel it replaces, its launches in the serve, train,
-search, train_variant, flagship, n7, mesh, apps, model_axis (the two
-ranks' sum), drivers, bench (the rows' sum) and breakdown (the five
-scripts' sum) runs, its largest error
+source, the TPU kernel it replaces (for ``cross_apply`` the reference's
+stacked XLA scatter), its launches in the serve, train, search,
+train_variant, flagship, n7, mesh, apps, model_axis (the two ranks'
+sum), drivers, bench (the rows' sum) and breakdown (the five scripts'
+sum) runs (``cross_apply``'s in this process's runs only), its largest
+error
 against the plain
 version, its, the plain version's and the library call's time in ms,
 and its bound:
@@ -241,6 +256,7 @@ SERVE_GAMES = 8192
 SERVE_B = 4 * SERVE_GAMES
 TRAIN_B = 8192  # envs of the shipped TrainConfig
 TRAIN_SEGMENTS = 12
+REPEAT_SEGMENTS = 4  # phase 13's runs, held bitwise against each other
 VARIANT_SEGMENTS = 6
 FLAGSHIP_SEGMENTS = 8  # n=6 at the shipped width
 N7_SEGMENTS = 2
@@ -291,9 +307,9 @@ TRACE_TOP = 12  # kernels of the traced step's histogram printed by name
 # the traced step's kernels by kind: the first kind whose text is in a
 # kernel's name takes it
 KERNEL_KINDS = [("eval_class", "eval_class_kernel"),
-                ("grad_class", "grad_class_kernel"),
-                ("grad_class fill", "zero_pair"),
+                ("grad_class", "grad_class_"),
                 ("fold_class", "fold_class_kernel"),
+                ("cross_apply", "cross_apply_"),
                 ("advanced-index gather", "index_elementwise_kernel"),
                 ("engine gather", "vectorized_gather_kernel"),
                 ("index_add_", "indexFuncLargeIndex"),
@@ -334,8 +350,13 @@ EARLIER_MS = {("eval_class", "bf16", 32768): 0.010267,
               ("eval_class", "bf16x2", 32768): 0.007419,
               ("eval_class", "f32", 32768): 0.007429,
               ("eval_class", "bf16", SEARCH_B): 0.4040,
-              ("grad_class", "random", TRAIN_B): 0.01020,
-              ("grad_class", "collide", TRAIN_B): 0.02140,
+              # grad_class's form with f32 atomics (PR 5), in this
+              # script's cases, before its fixed-order form
+              ("grad_class", "random", TRAIN_B): 0.00745,
+              ("grad_class", "collide", TRAIN_B): 0.00689,
+              ("grad_class", "train_fresh", TRAIN_B): 0.00658,
+              ("grad_class", "train_mid", TRAIN_B): 0.00902,
+              ("grad_class", "train_index", 8 * TRAIN_B): 0.01965,
               ("fold_class", "n=5", 17): 0.062832}
 
 
@@ -613,16 +634,25 @@ def _grad_check(hi, lo, dw, valid, h, l, what: str) -> tuple:
     """``grad_class`` on these rows against its plain version: one
     contiguous (2, G, H, L) pair, hits bitwise, dsum within hits *
     2^-23 * (sum of |dw| at the entry), and with dyadic dw on the same
-    rows (every sum exact in any order) the whole pair bitwise.
+    rows (every sum exact in any order) the whole pair bitwise; a second
+    launch gives the same bits, and so does the kernel's arithmetic in
+    plain PyTorch (``grad_class_ordered``), with these non-dyadic dw.
     Returns (largest |dsum error|, largest error over its bound)."""
     from tpu2048_torch.ops import kernels
 
     b, g = hi.shape
     pair = kernels.grad_class(hi, lo, dw, valid, h, l)
+    again = kernels.grad_class(hi, lo, dw, valid, h, l)
     torch.cuda.synchronize()
     if pair.shape != (2, g, h, l) or not pair.is_contiguous():
         raise AssertionError(f"grad_class {what}: not one contiguous "
                              f"(2, {g}, {h}, {l}) pair")
+    if not torch.equal(pair, again):
+        raise AssertionError(f"grad_class {what}: two launches differ")
+    if not torch.equal(pair, kernels.grad_class_ordered(hi, lo, dw, valid,
+                                                        h, l)):
+        raise AssertionError(f"grad_class {what}: not bitwise its ordered "
+                             "plain version")
     want = kernels.grad_class_reference(hi, lo, dw, valid, h, l)
     if not torch.equal(pair[1], want[1]):
         raise AssertionError(f"grad_class {what}: hits differ from the "
@@ -745,7 +775,8 @@ def phase_grad_class() -> dict:
           cases=["random", "all rows on one entry",
                  "train rows one step after a fresh start (n=5, 3, 2)"],
           hits="bitwise", dyadic_dw="bitwise", layout="(2, G, H, L)",
-          bad_index="NaN")
+          bad_index="NaN", two_launches="bitwise",
+          ordered_plain_version="bitwise")
     g, h, l = SHAPES[0]
     rows = [_grad_time(case, _grad_inputs(g, h, l, TRAIN_B, 11, dev, collide),
                        h, l)
@@ -765,7 +796,8 @@ def phase_grad_trained(state, kstat: dict) -> None:
     e, r = _grad_check(*args, h, l, "n=5 train rows mid-training")
     kstat["max_abs_err"] = max(kstat["max_abs_err"], e)
     _line("grad_class_check", case="train_mid", max_abs_err=e,
-          max_err_over_bound=r, hits="bitwise", dyadic_dw="bitwise")
+          max_err_over_bound=r, hits="bitwise", dyadic_dw="bitwise",
+          two_launches="bitwise", ordered_plain_version="bitwise")
     kstat["instances"].append(_grad_time("train_mid", args, h, l))
 
 
@@ -788,6 +820,111 @@ def _grad_library(hi, lo, dw, valid, h, l):
         return pair.view(2, g, h, l)
 
     return call
+
+
+def _cross_rows(state, seed: int) -> list:
+    """The canonical learner's crosses list from a train state, as the
+    step builds it: (flat, per, valid), per standard normal from
+    ``seed`` where the row is valid, 0 elsewhere."""
+    cidx = state.prev_cidx
+    valid = state.prev_valid[:, None].expand(cidx.shape).reshape(-1)
+    per = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        cidx.numel()).astype(np.float32)).to(cidx.device)
+    return [cidx.reshape(-1).long(), torch.where(valid, per, 0.0), valid]
+
+
+def phase_cross_apply(state) -> dict:
+    """The crosses' sparse update (``cross_apply``) on the crosses of a
+    fresh start's step and of ``state`` (the phase-8 trainer's last,
+    mid-training), "mean" and TC as the defaults: the same bits twice
+    and those of its arithmetic in plain PyTorch
+    (``cross_apply_ordered``), within the f32 summation-order bound of
+    the term-by-term plain version on the card and on the CPU (2^-22 *
+    (updates + 2) * (|old value| + sum |terms|)); the kernel's and the
+    plain version's times beside the bound (the list's bytes, and each
+    touched entry of the three tables read and written once; the
+    wrapper's sort included in its time)."""
+    from tpu2048_torch.agent import td
+    from tpu2048_torch.config import AgentConfig, TrainConfig
+    from tpu2048_torch.draws import TorchDraws
+    from tpu2048_torch.features.ntuple import get_tuple_set
+    from tpu2048_torch.ops import kernels
+
+    acfg = AgentConfig()
+    ts = get_tuple_set(acfg.n)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(acfg.n)
+    draws = TorchDraws(gen)
+    tcfg = TrainConfig(num_envs=TRAIN_B)
+    fresh = td.init_td_state(ts, acfg, tcfg, draws, "cuda")
+    fresh, _ = td.make_train_step(ts, acfg, tcfg, draws)(fresh)
+    rows, worst = [], 0.0
+    for case, st in (("train_fresh", fresh), ("train_mid", state)):
+        args = _cross_rows(st, len(rows) + 1)
+        cpu = [x.cpu() for x in (st.alpha, *args)]
+
+        def tables(dev="cuda"):
+            return [t.to(dev, copy=True) for t in (st.weights, st.opt_e,
+                                                    st.opt_a)]
+
+        ordered = tables()
+        kernels.cross_apply_ordered(*ordered, st.alpha, *args, True)
+        plains = [tables("cpu"), tables()]
+        kernels.cross_apply_reference(*plains[0], *cpu, True)
+        kernels.cross_apply_reference(*plains[1], st.alpha, *args, True)
+        mass = tables("cpu")  # each entry's sum of |terms|
+        mass[0].zero_()
+        kernels.cross_apply_reference(*mass, cpu[0], cpu[1], cpu[2].abs(),
+                                      cpu[3], True)
+        terms = [mass[0], mass[2] - st.opt_a.cpu(), mass[2] - st.opt_a.cpu()]
+        hits = torch.zeros(st.weights.shape[0]).index_add_(
+            0, cpu[1], torch.ones(cpu[1].shape[0]))
+        outs = []
+        for _ in range(2):
+            got = tables()
+            kernels.cross_apply(*got, st.alpha, *args, True)
+            outs.append(got)
+        torch.cuda.synchronize()
+        old = tables("cpu")
+        for i, name in enumerate(("weights", "opt_e", "opt_a")):
+            if not (torch.equal(outs[0][i], outs[1][i])
+                    and torch.equal(outs[0][i], ordered[i])):
+                raise AssertionError(f"cross_apply {case}: {name} is not "
+                                     "the same bits twice and its ordered "
+                                     "plain version's")
+            bound = 2.0**-22 * (hits + 2) * (old[i].abs() + terms[i])
+            for plain in plains:
+                err = (outs[0][i].cpu() - plain[i].cpu()).abs()
+                if not bool((err <= bound).all()):
+                    raise AssertionError(f"cross_apply {case}: {name} is "
+                                         "outside the plain version's bound")
+                worst = max(worst, float(err.max()))
+        del ordered, plains, mass, terms, outs, old
+        work = tables()
+        k = _device_ms(lambda: kernels.cross_apply(*work, st.alpha, *args,
+                                                   True))
+        pl = _device_ms(lambda: kernels.cross_apply_reference(
+            *work, st.alpha, *args, True))
+        m = args[0].shape[0]
+        entries, counts = torch.unique(args[0], return_counts=True)
+        # the list (int64 entries, f32 updates, bool flags) once, each
+        # touched entry of the three tables read and written once
+        nbytes = m * (8 + 4 + 1) + entries.numel() * 3 * 4 * 2
+        row = {"case": case, "updates": m, "entries": int(entries.numel()),
+               "most_on_one_entry": int(counts.max()), "ms": k[0],
+               "plain_ms": pl[0], "library_ms": None,
+               "bound_ms": _bound_ms(nbytes), "bytes": nbytes,
+               "bound_share": _bound_ms(nbytes) / k[0]}
+        _line("cross_apply_time", **row, kernel_ms_median_min_max=list(k),
+              plain_ms_median_min_max=list(pl), ordered_plain="bitwise",
+              two_launches="bitwise", plain_max_abs_err=worst,
+              library="none: no one call applies the TC rule's three "
+                      "tables")
+        rows.append(row)
+        del work
+    return {"max_abs_err": worst, "ms": rows[1]["ms"],
+            "plain_ms": rows[1]["plain_ms"], "library_ms": None,
+            "bound_ms": rows[1]["bound_ms"], "instances": rows}
 
 
 def phase_fold_class() -> dict:
@@ -843,8 +980,8 @@ def _to(x, dev):
 
 def _order_slack(acfg, ts, before, after) -> torch.Tensor:
     """Per table entry, the f32 summation-order bound of one step's
-    update: the card's atomics and the CPU add an entry's terms in
-    other orders, and phase 5's bound for a gradient sum, hits * 2^-23
+    update: the card's ``grad_class`` and the CPU add an entry's terms
+    in other fixed orders, and phase 5's bound for a gradient sum, hits * 2^-23
     * (sum of |dw| at the entry), carried through the learner's rule.
     ``before`` is the CPU state the step started from, ``after`` the
     CPU state it left (its TD errors are read back from the two).
@@ -1078,7 +1215,8 @@ def phase_train_variants(kstat: dict) -> None:
             e, r = _grad_check(*args, h, l, "n=5 index learner's rows")
             kstat["max_abs_err"] = max(kstat["max_abs_err"], e)
             _line("grad_class_check", case="train_index", max_abs_err=e,
-                  max_err_over_bound=r, hits="bitwise", dyadic_dw="bitwise")
+                  max_err_over_bound=r, hits="bitwise", dyadic_dw="bitwise",
+                  two_launches="bitwise", ordered_plain_version="bitwise")
             kstat["instances"].append(_grad_time("train_index", args, h, l))
 
 
@@ -1111,8 +1249,7 @@ def phase_train(name: str) -> tuple:
         store = LocalStore(root)
         tr = Trainer(name, acfg, tcfg, store=store,
                      logger=Logger(console=False), device="cuda")
-        for k in (kernels.eval_class, kernels.grad_class, kernels.fold_class):
-            k.launches = 0
+        _reset_launches()
         out = tr.run(job=_StopAfter(TRAIN_SEGMENTS))
         torch.cuda.synchronize()
         launches = {k.__name__: k.launches for k in (
@@ -1123,6 +1260,7 @@ def phase_train(name: str) -> tuple:
         if launches != want:
             raise AssertionError(f"train run launched {launches}, expected "
                                  f"{want} (every kernel on every step)")
+        launches = _with_crosses(launches, steps, "train run")
         st = tr.state
         if not bool(torch.isfinite(st.weights).all()):
             raise AssertionError("non-finite weights after training")
@@ -1192,8 +1330,7 @@ def phase_train_variant(name: str) -> dict:
         store = LocalStore(root)
         tr = Trainer(name, acfg, tcfg, store=store,
                      logger=Logger(console=False), device="cuda")
-        for k in (kernels.eval_class, kernels.grad_class, kernels.fold_class):
-            k.launches = 0
+        _reset_launches()
         out = tr.run(job=_StopAfter(VARIANT_SEGMENTS))
         torch.cuda.synchronize()
         launches = _launch_counts()
@@ -1202,6 +1339,7 @@ def phase_train_variant(name: str) -> dict:
         if launches != want:
             raise AssertionError(f"sgd/index run launched {launches}, "
                                  f"expected {want}")
+        launches = _with_crosses(launches, 0, "sgd/index run")
         st = tr.state
         if not bool(torch.isfinite(st.weights).all()):
             raise AssertionError("sgd/index: non-finite weights")
@@ -1228,6 +1366,12 @@ def phase_train_variant(name: str) -> dict:
                                      "allows")
             resumed[dev] = "stream continued" if continued else "fresh stream"
             del again
+        # a second run from the same seed: the same bits
+        twin = Trainer(name + "_twin", acfg, tcfg, logger=_quiet(),
+                       device="cuda")
+        twin_out = twin.run(job=_StopAfter(VARIANT_SEGMENTS))
+        _same_runs((st, out), (twin.state, twin_out), "sgd/index")
+        del twin
     timer = tr.timer
     seg_s = (timer.totals["train_segment"] + timer.totals["metrics_read"]
              ) / VARIANT_SEGMENTS
@@ -1243,7 +1387,8 @@ def phase_train_variant(name: str) -> dict:
           ma100_last=hist[-1] if hist else None, ma100_points=len(hist),
           launches=launches,
           launches_per_step={k: v / steps for k, v in launches.items()},
-          resumed=resumed, timer=timer.report().splitlines())
+          resumed=resumed, second_run_from_the_seed="bitwise",
+          timer=timer.report().splitlines())
     return launches
 
 
@@ -1343,8 +1488,22 @@ def phase_search() -> tuple:
 def _reset_launches() -> None:
     from tpu2048_torch.ops import kernels
 
-    for k in (kernels.eval_class, kernels.grad_class, kernels.fold_class):
+    for k in (kernels.eval_class, kernels.grad_class, kernels.fold_class,
+              kernels.cross_apply):
         k.launches = 0
+
+
+def _with_crosses(launches: dict, want: int, what: str) -> dict:
+    """``launches`` with ``cross_apply``'s count since the last reset,
+    which must be ``want`` (the canonical learner's crosses: one a
+    step)."""
+    from tpu2048_torch.ops import kernels
+
+    if kernels.cross_apply.launches != want:
+        raise AssertionError(f"{what}: cross_apply launched "
+                             f"{kernels.cross_apply.launches}, expected "
+                             f"{want}")
+    return {**launches, "cross_apply": kernels.cross_apply.launches}
 
 
 def _quiet():
@@ -1359,8 +1518,29 @@ def _default_step_launches(steps: int) -> dict:
     return {"eval_class": 2 * steps, "grad_class": steps, "fold_class": steps}
 
 
-def phase_big_step(n: int) -> None:
-    """Phase 12's step check: phase 10's, at n=6 or n=7."""
+def _card_step_twice(acfg, tcfg) -> int:
+    """One train step on the card, twice from one mid-start state (two
+    warm steps after a fresh start, the table's own non-dyadic
+    weights) with the same draws: every leaf of the two results
+    bitwise equal.  Returns the leaves compared."""
+    from tpu2048_torch.agent import td
+    from tpu2048_torch.draws import NumpyDraws
+    from tpu2048_torch.features.ntuple import get_tuple_set
+
+    ts = get_tuple_set(acfg.n)
+    st = td.init_td_state(ts, acfg, tcfg, NumpyDraws(0, "cuda"), "cuda")
+    warm = td.make_train_step(ts, acfg, tcfg, NumpyDraws(1, "cuda"))
+    st, _ = warm(warm(st)[0])
+    outs = [td.make_train_step(ts, acfg, tcfg, NumpyDraws(3, "cuda"))(
+        _to(st, "cuda"))[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    return _same_runs((outs[0], None), (outs[1], None),
+                      f"n={acfg.n} step")
+
+
+def phase_big_step(n: int, twice: bool = False) -> None:
+    """Phase 12's step check: phase 10's, at n=6 or n=7; with ``twice``
+    also one step twice on the card from one state, bitwise."""
     from tpu2048_torch.config import AgentConfig, TrainConfig
     from tpu2048_torch.features.ntuple import get_tuple_set
 
@@ -1372,12 +1552,17 @@ def phase_big_step(n: int) -> None:
     errs = _hold_states(card, plain, f"n={n} train step", slack)
     if launches != _default_step_launches(1):
         raise AssertionError(f"n={n} step launched {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    gather_features = int(card.prev_cidx.shape[1])
+    del card, plain
+    repeat = _card_step_twice(acfg, TrainConfig(num_envs=TRAIN_B)) \
+        if twice else None
     _line("flagship_step_check", n=n, envs=TRAIN_B,
+          step_twice_leaves_bitwise=repeat,
           weights=int(get_tuple_set(n).total), integers="bitwise",
           max_abs_err=errs, tolerance="2^-17 * max|table| + the entry's "
           "summation-order bound", launches=launches,
-          gather_features=int(card.prev_cidx.shape[1]),
-          peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+          gather_features=gather_features, peak_allocated_bytes=peak,
           seconds=time.perf_counter() - t0)
 
 
@@ -1414,6 +1599,7 @@ def phase_flagship(n: int, segments: int, name: str, save: bool) -> dict:
         if launches != _default_step_launches(steps):
             raise AssertionError(f"n={n} run launched {launches}, expected "
                                  "every kernel on every step")
+        launches = _with_crosses(launches, steps, f"n={n} run")
         st = tr.state
         if not bool(torch.isfinite(st.weights).all()):
             raise AssertionError(f"n={n}: non-finite weights after training")
@@ -1470,6 +1656,24 @@ def _games_differing(a, b) -> int:
                 | (a.env.score != b.env.score)).sum())
 
 
+def _same_runs(a: tuple, b: tuple, what: str) -> int:
+    """Two (state, ``Trainer.run`` result) pairs from one seed: no game
+    differs, and every state leaf (weights, TC sums, boards, rings with
+    their trash slot, logs with their spill column, the best game) and
+    the run's episodes, top score and ma-100 history are bitwise equal.
+    Returns the leaves compared."""
+    games = _games_differing(a[0], b[0])
+    fa, fb = _flat(a[0]), _flat(b[0])
+    differ = sorted(k for k in fa if not np.array_equal(fa[k], fb[k]))
+    runs = [{k: r[k] for k in ("episodes", "top_score", "train_history")}
+            for r in (a[1], b[1])] if a[1] is not None else [None, None]
+    if games or differ or runs[0] != runs[1]:
+        raise AssertionError(f"{what}: two runs from one seed differ: "
+                             f"{games} games, leaves {differ}, results "
+                             f"{runs}")
+    return len(fa)
+
+
 def _step_collectives(ts, tcfg, world: int) -> dict:
     """The collectives of one step of the shipped learner under a mesh,
     and their bytes as ``Mesh`` counts them (what each hands back to a
@@ -1523,11 +1727,12 @@ def phase_mesh() -> tuple:
           launches=launches, collectives=dict(mesh.counts),
           seconds=time.perf_counter() - t0)
 
-    # one segment of the defaults through the mesh, and without it
+    # one segment of the defaults through the mesh, and without it, each
+    # after a warm one; then each run on to REPEAT_SEGMENTS segments
     acfg = AgentConfig()
     tcfg = TrainConfig(episodes=10**9, checkpoint_every=10**9)
     ts = get_tuple_set(acfg.n)
-    runs = {}
+    runs, ends = {}, {}
     for what in ("mesh", "plain", "plain_again"):
         tr = Trainer(what, acfg, tcfg, logger=_quiet(),
                      mesh=mesh if what == "mesh" else None, device="cuda")
@@ -1541,8 +1746,15 @@ def phase_mesh() -> tuple:
             raise AssertionError(f"{what}: launched {_launch_counts()}")
         if not bool(torch.isfinite(tr.state.weights).all()):
             raise AssertionError(f"{what}: non-finite weights")
-        runs[what] = (tr.state, out["env_steps_per_sec"], _launch_counts(),
+        runs[what] = (tr.state, out["env_steps_per_sec"],
+                      _with_crosses(_launch_counts(), tcfg.steps_per_call,
+                                    what),
                       dict(mesh.counts), tr.state._replace(env=first))
+        ends[what] = (tr.state, tr.run(job=_StopAfter(REPEAT_SEGMENTS - 2)))
+        torch.cuda.synchronize()
+    # two unmeshed runs from one seed: the same bits
+    leaves = _same_runs(ends["plain"], ends["plain_again"],
+                        "two unmeshed runs")
     want = _step_collectives(ts, tcfg, world=1)
     k = tcfg.steps_per_call
     counted = runs["mesh"][3]
@@ -1577,8 +1789,14 @@ def phase_mesh() -> tuple:
               for i in (4, 0)],
           games_differing_plain_vs_plain=[
               _games_differing(runs["plain"][i], runs["plain_again"][i])
-              for i in (4, 0)])
-    return runs["mesh"][2], mesh, runs["mesh"][0]
+              for i in (4, 0)],
+          repeat_segments=REPEAT_SEGMENTS,
+          games_differing_after_repeat_segments={
+              "plain_vs_plain": 0,
+              "mesh_vs_plain": _games_differing(ends["mesh"][0],
+                                                ends["plain"][0])},
+          plain_vs_plain_leaves_bitwise=leaves)
+    return runs["mesh"][2], mesh, ends["mesh"][0]
 
 
 def phase_fixed_order(mesh, state) -> None:
@@ -2275,7 +2493,12 @@ def phase_apps() -> dict:
     finally:
         server.stop()
     torch.cuda.synchronize()
-    launches = _launch_counts()
+    from tpu2048_torch.ops import kernels
+
+    # the train jobs' crosses: one a step (the stopped job's steps too)
+    launches = {**_launch_counts(), "cross_apply": kernels.cross_apply.launches}
+    if launches["cross_apply"] != launches["grad_class"]:
+        raise AssertionError(f"apps: cross_apply launched {launches}")
     _line("apps", seconds=time.perf_counter() - t0, n=5, envs=TRAIN_B,
           launches=launches, **jobs)
     return launches
@@ -2284,10 +2507,12 @@ def phase_apps() -> dict:
 def phase_trace() -> None:
     """Phase 17: ``Trainer.run(trace_dir=...)`` of the defaults at the
     shipped width for TRACE_SEGMENTS segments; the trace names all three
-    kernels (the wrappers' launches, one kernel event each, two for
-    ``grad_class``: its fill and its scatter) among the step's other
-    kernels; its size, events, kernel events per step and histogram;
-    env-steps/s beside an untraced run's, as a reading."""
+    kernels and ``cross_apply`` (the wrappers' launches, one kernel
+    event each, four for ``grad_class``: its count, scan, place and
+    reduce, and two for ``cross_apply``) among the step's other
+    kernels; its size, events, kernel
+    events per step and histogram; env-steps/s beside an untraced
+    run's, as a reading."""
     import glob
 
     from tpu2048_torch.config import AgentConfig, TrainConfig
@@ -2316,6 +2541,7 @@ def phase_trace() -> None:
         launches = _launch_counts()
         if launches != _default_step_launches(steps):
             raise AssertionError(f"trace: the run launched {launches}")
+        launches = _with_crosses(launches, steps, "trace")
         files = glob.glob(os.path.join(root, "*.pt.trace.json"))
         if len(files) != 1:
             raise AssertionError(f"trace: {len(files)} trace files")
@@ -2326,13 +2552,20 @@ def phase_trace() -> None:
         read_s = time.perf_counter() - t0
     kern = [e for e in events if e.get("cat") == "kernel"]
     symbols = {"eval_class": "eval_class_kernel",
-               "grad_class": "grad_class_kernel",
-               "fold_class": "fold_class_kernel"}
+               "grad_class": "grad_class_reduce",
+               "fold_class": "fold_class_kernel",
+               "cross_apply": "cross_apply_entries"}
     counts = {k: sum(sym in e["name"] for e in kern)
               for k, sym in symbols.items()}
-    fills = sum("zero_pair" in e["name"] for e in kern)
-    if counts != launches or fills != launches["grad_class"]:
-        raise AssertionError(f"trace: kernel events {counts} (fills {fills}) "
+    grad_parts = {part: sum(f"grad_class_{part}" in e["name"] for e in kern)
+                  for part in ("count", "scan", "place", "reduce")}
+    cross_parts = {part: sum(f"cross_apply_{part}" in e["name"] for e in kern)
+                   for part in ("groups", "entries")}
+    if counts != launches or \
+            set(grad_parts.values()) != {launches["grad_class"]} or \
+            set(cross_parts.values()) != {launches["cross_apply"]}:
+        raise AssertionError(f"trace: kernel events {counts} (grad_class's "
+                             f"{grad_parts}, cross_apply's {cross_parts}) "
                              f"against launches {launches}")
     hist, kinds = {}, {}
     for e in kern:
@@ -2351,7 +2584,8 @@ def phase_trace() -> None:
           trace_bytes=size, events=len(events), kernel_events=len(kern),
           kernel_events_per_step=len(kern) / steps,
           kernel_names=len(hist), kernel_us_per_step=device_us / steps,
-          kernels=counts, grad_class_fills=fills, read_s=read_s,
+          kernels=counts, grad_class_kernels=grad_parts,
+          cross_apply_kernels=cross_parts, read_s=read_s,
           **rates,
           by_kind={k: {"per_step": c / steps, "us_per_step": us / steps}
                    for k, (c, us) in sorted(kinds.items(),
@@ -2827,11 +3061,12 @@ def main() -> int:
     phase_train_step()
     train, trained = phase_train("smoke")
     phase_grad_trained(trained, kstats["grad_class"])
+    kstats["cross_apply"] = phase_cross_apply(trained)
     search, search_check = phase_search()
     kstats["eval_class"]["instances"].append(search_check)
     phase_train_variants(kstats["grad_class"])
     variant = phase_train_variant("smoke_sgd")
-    phase_big_step(6)
+    phase_big_step(6, twice=True)
     flagship = phase_flagship(6, FLAGSHIP_SEGMENTS, "smoke_n6", save=True)
     phase_big_step(7)
     n7 = phase_flagship(7, N7_SEGMENTS, "smoke_n7", save=False)
@@ -2855,24 +3090,28 @@ def main() -> int:
         "eval_class": "tpu2048/ops/pallas_kernels.py:131",
         "grad_class": "tpu2048/ops/pallas_kernels.py:220",
         "fold_class": "tpu2048/ops/fold_kernel.py:435",
+        # the reference's stacked XLA scatter of the crosses (no Pallas)
+        "cross_apply": "tpu2048/agent/td.py:669",
     }
+
+    def by_path(k):
+        # cross_apply is counted in this process's runs only: the
+        # subprocesses of phases 18 and 20-22 report the other three
+        return {"serve": serve if k == "eval_class" else 0,
+                "train": train[k],
+                "search": search if k == "eval_class" else 0,
+                "train_variant": variant[k], "flagship": flagship[k],
+                "n7": n7[k], "mesh": meshed[k], "apps": apps[k],
+                "model_axis": model_axis.get(k), "drivers": drivers.get(k),
+                "bench": bench.get(k), "breakdown": breakdown.get(k)}
+
     print(json.dumps({"kernels": [{
         "name": k,
         "route": "cuda",
         "source": f"tpu2048_torch/ops/csrc/{k}.cu",
         "replaces": replaces[k],
-        "launches": train[k] + variant[k] + flagship[k] + n7[k] + meshed[k]
-        + apps[k] + model_axis[k] + drivers[k] + bench[k] + breakdown[k]
-        + (serve + search if k == "eval_class" else 0),
-        "launches_by_path": {"serve": serve if k == "eval_class" else 0,
-                             "train": train[k],
-                             "search": search if k == "eval_class" else 0,
-                             "train_variant": variant[k],
-                             "flagship": flagship[k], "n7": n7[k],
-                             "mesh": meshed[k], "apps": apps[k],
-                             "model_axis": model_axis[k],
-                             "drivers": drivers[k], "bench": bench[k],
-                             "breakdown": breakdown[k]},
+        "launches": sum(v for v in by_path(k).values() if v),
+        "launches_by_path": by_path(k),
         "bound_by": "bytes",
         # the same two readings under this round's names
         "bound_us": 1e3 * kstats[k]["bound_ms"],

@@ -16,18 +16,18 @@
    taken by the ported kernels, and the device's busy and idle share
    of the profiled wall time.
 3. From the same trace, the class-gradient stretch of each step: the
-   fills just before the ``grad_class`` scatter (torch's fill kernels,
-   or the port's own ``zero_pair``), the scatter, whatever runs
-   between it and ``fold_class`` (a copy, where the pair is stacked),
-   and the fold; device µs per step of each part, and the span from
-   the first fill's start to the fold's end.  Then ``CALLS``
-   ``grad_class`` calls at (17, 256, 256), B = 8192, half the rows
-   valid, with random indices and with every row on one entry, queued
-   behind a sleep kernel so that they run back to back: per call the
-   fills, the scatter (and its part after the fill has ended: a
-   scatter launched as the fill's programmatic dependent starts early
-   and waits), the card's idle time and overlap inside the call, and
-   the period from one call's end to the next.
+   fills just before ``grad_class``'s kernels (torch's fill kernels,
+   or a fill of the kernel's own), its kernels (consecutive events
+   named ``grad_class*``, taken as one), whatever runs between them
+   and ``fold_class``, and the fold; device µs per step of each part,
+   and the span from the first fill's start to the fold's end.  Then
+   ``CALLS`` ``grad_class`` calls at (17, 256, 256), B = 8192, half
+   the rows valid, with random indices and with every row on one
+   entry, queued behind a sleep kernel so that they run back to back:
+   per call the fills, the kernels (and their part after the fills
+   have ended: a kernel launched as a programmatic dependent starts
+   early and waits), the card's idle time and overlap inside the
+   call, and the period from one call's end to the next.
 
 ``--root`` names the checkout whose ``tpu2048_torch`` is profiled (by
 default the one this script lies in), so one copy of the script
@@ -75,7 +75,7 @@ KINDS = [
     ("CatArray", "cat/stack"),
     ("copy", "copy/convert"),
     ("FillFunctor", "fill/zero"),
-    ("zero_pair", "fill/zero"),  # grad_class's own fill of its pair
+    ("zero_pair", "fill/zero"),  # a grad_class fill of its own pair
     ("fill", "fill/zero"),
     ("Memset", "fill/zero"),
     ("where", "where"),
@@ -101,9 +101,20 @@ def _kind(name: str) -> str:
 
 
 def _grad_parts(events: list) -> list:
-    """For each ``grad_class`` kernel in ``events``: the fills right
-    before it, the kernel, and, where a ``fold_class`` follows before
-    the next ``grad_class``, what runs between them and the fold."""
+    """For each ``grad_class`` call in ``events`` (its consecutive
+    kernels, merged into one event from the first's start to the last's
+    end): the fills right before it, the call, and, where a
+    ``fold_class`` follows before the next call, what runs between them
+    and the fold."""
+    merged = []
+    for e in events:
+        if "grad_class" in e[0] and merged and "grad_class" in merged[-1][0]:
+            start = merged[-1][1]
+            merged[-1] = ("grad_class", start,
+                          max(merged[-1][2], e[1] + e[2] - start))
+        else:
+            merged.append(e)
+    events = merged
     parts = []
     at = [i for i, e in enumerate(events) if "grad_class" in e[0]]
     for j, i in enumerate(at):

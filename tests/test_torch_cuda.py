@@ -1,8 +1,9 @@
-"""The port's CUDA kernels on the card: ``eval_class``, ``grad_class``
-and ``fold_class`` against their plain PyTorch versions, the serving
-slice and the expectimax search through the kernel against the same
-games through plain gathers, and one train step through the kernels
-against the same step on the CPU through the plain versions.
+"""The port's CUDA kernels on the card: ``eval_class``, ``grad_class``,
+``fold_class`` and ``cross_apply`` against their plain PyTorch
+versions, the serving slice and the expectimax search through the
+kernel against the same games through plain gathers, one train step
+through the kernels against the same step on the CPU through the plain
+versions, and two training runs from one seed, bitwise.
 
 Every test here needs a CUDA card and skips without one.  The file
 imports no jax, so on a machine without it the tests run with
@@ -251,6 +252,114 @@ def test_grad_class_kernel_any_batch(b):
     assert torch.equal(kernels.grad_class(*shift, dw, valid, h, l), want)
 
 
+@pytest.mark.parametrize("rows", ["random", "collide", "fresh", "midgame",
+                                  "index_65536"])
+def test_grad_class_kernel_repeats_bitwise(rows):
+    """Two launches on one input with non-dyadic dw give the same bits,
+    and those of the kernel's arithmetic in plain PyTorch
+    (``grad_class_ordered``, on the CPU): random rows, every row on one
+    entry, and the train step's rows (a fresh start, mid-game boards,
+    the "index" learner's 65,536)."""
+    dev = needs_card()
+    from test_torch_ordered import ROWS, _random_rows
+
+    if rows in ("random", "collide"):
+        args = _random_rows(*SHAPES[0], 8192, 3, rows == "collide")
+    else:
+        args = ROWS[rows]()
+    *cpu, h, l = args
+    on_card = [t.to(dev) for t in cpu]
+    first = kernels.grad_class(*on_card, h, l)
+    again = kernels.grad_class(*on_card, h, l)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(first.cpu(), kernels.grad_class_ordered(*cpu, h, l))
+
+
+def test_grad_class_kernel_refuses_wide_blocks():
+    dev = needs_card()
+    hi, lo, dw, valid = _grad_inputs(2, 16, 16, 64, 0, dev)
+    with pytest.raises(ValueError):
+        kernels.grad_class(hi, lo, dw, valid, 512, 16)
+
+
+@pytest.mark.parametrize("tc", [True, False])
+@pytest.mark.parametrize("mean", [True, False])
+def test_cross_apply_kernel_equals_plain(tc, mean):
+    """The crosses' update on the card: one launch, the same bits twice
+    and those of its arithmetic in plain PyTorch
+    (``cross_apply_ordered``); within the f32 summation-order bound of
+    the term-by-term plain version, on the card and on the CPU."""
+    dev = needs_card()
+    from test_torch_ordered import _cross_inputs
+
+    flat, per, valid, w, e, a = _cross_inputs(int(tc) * 2 + int(mean),
+                                              total=1 << 16, m=1 << 17)
+    alpha = torch.tensor(0.37)
+    empty = torch.zeros(0)
+
+    def tables(device):
+        return [w.to(device, copy=True),
+                (e if tc else empty).to(device, copy=True),
+                (a if tc else empty).to(device, copy=True)]
+
+    on = [x.to(dev) for x in (alpha, flat, per, valid)]
+    ordered = tables(dev)
+    kernels.cross_apply_ordered(*ordered, *on, mean)
+    plains = [tables("cpu"), tables(dev)]
+    kernels.cross_apply_reference(*plains[0], alpha, flat, per, valid, mean)
+    kernels.cross_apply_reference(*plains[1], *on, mean)
+    runs = []
+    for _ in range(2):
+        got = tables(dev)
+        before = kernels.cross_apply.launches
+        kernels.cross_apply(*got, *on, mean)
+        torch.cuda.synchronize()
+        assert kernels.cross_apply.launches == before + 1
+        runs.append(got)
+    # each entry's sum of |terms|: the same update of |per| from a zero
+    # weight table (the rates read E and A as they are)
+    mass = tables("cpu")
+    mass[0].zero_()
+    kernels.cross_apply_reference(*mass, alpha, flat, per.abs(), valid, mean)
+    terms = [mass[0]] + ([mass[2] - a] * 2 if tc else [])
+    hits = torch.zeros(w.shape[0]).index_add_(0, flat, torch.ones(
+        flat.shape[0]))
+    for i in range(3 if tc else 1):
+        assert torch.equal(runs[0][i], runs[1][i])
+        assert torch.equal(runs[0][i], ordered[i])
+        bound = 2.0**-22 * (hits + 2) * (tables("cpu")[i].abs() + terms[i])
+        for plain in plains:
+            assert bool(((runs[0][i].cpu() - plain[i].cpu()).abs()
+                         <= bound).all())
+
+
+@pytest.mark.parametrize("envs,k,segments", [(64, 8, 2), (8192, 64, 4)])
+def test_trainer_runs_repeat_bitwise(envs, k, segments):
+    """Two ``Trainer`` runs of the defaults from one seed on the card:
+    every state leaf, the rings' trash slot and the logs' spill column
+    included, and the run's results bitwise equal."""
+    dev = needs_card()
+    from chip_smoke import _flat
+    from tpu2048_torch.obs.logging import Logger
+    from tpu2048_torch.train.loop import Trainer
+
+    tcfg = TrainConfig(num_envs=envs, steps_per_call=k, seed=3,
+                       episodes=10**9, checkpoint_every=10**9)
+    runs = []
+    for _ in range(2):
+        tr = Trainer("twice", AgentConfig(), tcfg,
+                     logger=Logger(console=False), device=dev.type)
+        out = tr.run(job=_StopAfter(segments))
+        runs.append((_flat(tr.state), {key: out[key] for key in (
+            "episodes", "top_score", "train_history")}))
+    (a, out_a), (b, out_b) = runs
+    assert out_a == out_b
+    assert a.keys() == b.keys()
+    for name in a:
+        np.testing.assert_array_equal(a[name], b[name], name)
+
+
 @pytest.mark.parametrize("n", [2, 3, 4, 5])
 def test_fold_class_kernel_bitwise(n):
     dev = needs_card()
@@ -276,7 +385,8 @@ def test_train_step_card_matches_cpu_plain():
     """One n=5 step through the kernels on the card and through their
     plain versions on the CPU, from one state with dyadic weights and
     the same draws: integers bitwise, tables within 2^-17 of the
-    largest entry (the card's atomics reorder f32 sums)."""
+    largest entry (``grad_class`` sums in another fixed order than the
+    CPU's row order)."""
     dev = needs_card()
     acfg = AgentConfig(table_ops="pallas")
     tcfg = TrainConfig(num_envs=1024, ring_size=256, max_record_steps=256)
@@ -306,8 +416,7 @@ def test_train_step_card_matches_cpu_plain():
                  "prev_value", "top_tile"):
         assert torch.equal(getattr(card, name).cpu(),
                            getattr(plain, name)), name
-    # the rings' trash slot takes every unfinished lane's write, in no
-    # set order
+    # the rings' trash slot aside: the reference's layout has none
     for a, b in zip(card.metrics, plain.metrics):
         if a.dim():
             a, b = a[:-1], b[:-1]

@@ -48,7 +48,16 @@ Forms that differ from the reference, with the same results:
     merges them once (``_merge_staged_recorder``).  The reference's
     packed (3, total) scan carry is a TPU layout and is not ported;
   * the recorder's (R, S) logs carry one spill column S, where writes
-    of lanes that do not record land (the reference drops them).
+    of lanes that do not record land (the reference drops them); the
+    merged segment writes 0 there, as the rings' trash slot takes 0.
+
+Every float sum that feeds a table runs in a fixed order on the card
+as on the CPU, as the reference's do on its chip: the class gradients
+in ``grad_class``'s (``ops/csrc/grad_class.cu``), the canonical crosses
+in ``cross_apply``'s (``ops/csrc/cross_apply.cu``), the other sparse
+adds in ``ops/kernels.py::scatter_add_ordered``'s; only 0/1 hit
+counts, exact in any order, take ``index_add_``.  So a seed, its
+inputs and one card give one run, bit for bit.
 
 Data parallel (``mesh=``, a ``parallel.mesh.Mesh``): each rank steps
 its env range of the global batch and holds the tables whole.  The
@@ -344,16 +353,11 @@ def _tperm(device: torch.device) -> torch.Tensor:
                             ).to(device)
 
 
-def _tc_rate(e: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """The TC per-weight rate |E| / A (1 where A is still 0)."""
-    return torch.where(a > 0.0, e.abs() / a.clamp(min=1e-30), 1.0)
-
-
 def _tc_apply(w: torch.Tensor, e: torch.Tensor, a: torch.Tensor,
               alpha: torch.Tensor, dbar: torch.Tensor) -> None:
     """The TC rule on one table (or block), in place: the rate from E
     and A before they take ``dbar``."""
-    lr = _tc_rate(e, a)
+    lr = kernels.tc_rate(e, a)
     w.add_(alpha * lr * dbar)
     e.add_(dbar)
     a.add_(dbar.abs())
@@ -473,14 +477,6 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
                 state.weights[blk].add_(dsum / hits.clamp(min=1.0)
                                         if mean else dsum)
 
-    def add(table: torch.Tensor, flat: torch.Tensor, upd: torch.Tensor):
-        """``table[flat] += upd``; in the list's order under a mesh,
-        where every replica must take the same bits."""
-        if mesh is None:
-            table.index_add_(0, flat, upd)
-        else:
-            table_dispatch.scatter_add_ordered(table, flat, upd)
-
     def cross_update(state: TDState, delta: torch.Tensor) -> None:
         """Canonical form, gather classes: one sparse update at the
         canonical-orbit indices, in place.  "sum" scales each hit by
@@ -502,19 +498,14 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
             held, flat = table_dispatch._owned(shard, flat)
             valid = valid & held.view(cidx.shape)
         per = torch.where(valid, per, 0.0)
-        if mean:
-            hits_g = torch.zeros(state.weights.shape[0], dtype=torch.float32,
-                                 device=cidx.device)
-            hits_g.index_add_(0, flat, valid.to(torch.float32).reshape(-1))
-            per = per / hits_g[flat].view(cidx.shape).clamp(min=1.0)
-        if not tc:
-            add(state.weights, flat, per.reshape(-1))
-            return
-        # gather E/A before any of the three scatters
-        lr_g = _tc_rate(state.opt_e[flat], state.opt_a[flat]).view(cidx.shape)
-        add(state.weights, flat, (state.alpha * lr_g * per).reshape(-1))
-        add(state.opt_e, flat, per.reshape(-1))
-        add(state.opt_a, flat, per.abs().reshape(-1))
+        # one stable order of the list for the three tables and the
+        # mean's hits, each entry's terms summed in a fixed order: one
+        # seed gives one table on the card, and every replica of a mesh
+        # takes the same bits
+        apply = kernels.cross_apply if table_dispatch.uses_kernels(
+            ops, flat.device) else kernels.cross_apply_reference
+        apply(state.weights, state.opt_e, state.opt_a, state.alpha, flat,
+              per.reshape(-1), valid.reshape(-1), mean)
 
     def global_pair(pair: torch.Tensor) -> torch.Tensor:
         """The table-sized (under a model axis, shard-sized) [dsum;
@@ -678,20 +669,23 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
         n_done = done_g.sum(dtype=torch.int32)
         order = done_g.cumsum(0, dtype=torch.int32) - 1
         wpos = torch.where(done_g, (met.ring_pos + order) % ring, ring).long()
-        met.score_ring.index_put_((wpos,), score_g)
-        met.tile_ring.index_put_((wpos,), tiles_g)
+        # the lanes that finished nothing all write 0 into the trash
+        # slot, so that it holds the same bits whichever write lands
+        score_done = torch.where(done_g, score_g, 0)
+        tiles_done = torch.where(done_g, tiles_g, 0)
+        met.score_ring.index_put_((wpos,), score_done)
+        met.tile_ring.index_put_((wpos,), tiles_done)
         metrics = Metrics(
             episodes=met.episodes + n_done,
             score_ring=met.score_ring,
             tile_ring=met.tile_ring,
             ring_pos=met.ring_pos + n_done,
-            best_score=torch.maximum(met.best_score,
-                                     torch.where(done_g, score_g, 0).max()),
+            best_score=torch.maximum(met.best_score, score_done.max()),
         )
 
         # --- alpha schedule (skipped by the self-annealing TC rule) ---
         alpha, next_decay = state.alpha, state.next_decay
-        mt_done = torch.where(done_g, tiles_g, 0).max()
+        mt_done = tiles_done.max()
         top_tile = torch.maximum(state.top_tile, mt_done)
         if not tc:
             # f32 throughout: the Python floats take the tensor's type
@@ -920,10 +914,13 @@ def _merge_staged_recorder(rec: Recorder, starts0: torch.Tensor,
         best = _global_best(mesh, best,
                             torch.where(use_in, k - 1 - k_in, k), span=k + 1)
 
-    # the scatter, after every read of the old rows above
+    # the scatter, after every read of the old rows above; the steps
+    # that record nothing all write 0 into the spill column, so that it
+    # holds the same bits whichever write lands
     rows = torch.arange(r, device=dev).expand(k, r)
-    rec.moves.index_put_((rows, col), mv)
-    rec.spawns.index_put_((rows, col), sp)
+    spill = col == s_max
+    rec.moves.index_put_((rows, col), torch.where(spill, 0, mv))
+    rec.spawns.index_put_((rows, col), torch.where(spill, 0, sp))
     return _take_best(rec, best)
 
 

@@ -30,16 +30,19 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# name -> argtypes of each C entry point; all return an int
-# (a cudaError_t, or for cuda_error_string a char*)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# name -> argtypes of each C entry point; all return an int (a
+# cudaError_t; cuda_error_string a char*, grad_class_scratch_words a
+# long long)
 _ENTRY_POINTS = {
     # tables, round_bf16, hi, lo, out, B, G, H, L, stream
     "eval_class_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    # hi, lo, dw, valid, pair, B, G, H, L, stream
-    "grad_class_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # hi, lo, dw, valid, pair, scratch, scratch words, B, G, H, L, stream
+    "grad_class_launch": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     # x, out, orbits, reps, n_orbits, R, G, k, stream
     "fold_class_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # key, per, valid, scratch, w, e, a, alpha, M, mean, tc, stream
+    "cross_apply_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 # held by a build and by the first load: one nvcc run and one bound
 # library per process, whichever threads ask at once
@@ -130,5 +133,7 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
+            lib.grad_class_scratch_words.argtypes = [_I, _I, _I]
+            lib.grad_class_scratch_words.restype = _L
             _LIBRARY = lib
         return _LIBRARY

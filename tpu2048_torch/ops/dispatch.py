@@ -60,6 +60,7 @@ import torch
 from ..features.ntuple import TupleSet, feature_indices, get_tuple_set
 from . import kernels
 from . import onehot as oh
+from .kernels import scatter_add_ordered
 
 
 def resolve_mode(mode: str, device: torch.device) -> str:
@@ -338,12 +339,13 @@ def make_class_grads(ts: TupleSet, mode: str, mesh=None
     ``classes.matmul``, each pair [dsum; hits] in one contiguous tensor
     (``dsum, hits = pair`` unpacks it): the ``grad_class`` kernel on
     "pallas" (its plain version on CPU tensors), the one-hot products
-    on "onehot", the plain ``index_add_`` on "gather".  hits are exact;
-    dsum differs between them only in f32 summation order.  Under a
-    ``mesh`` with a model axis each pair covers the class's tuples ``a
-    .. b - 1`` that this rank holds, (2, b - a, h, l)
-    (``TableShard.tuples``), and is None for a class it holds none
-    of.
+    on "onehot", the plain version (``kernels.grad_class_reference``,
+    rows added in their order) on "gather".  hits are exact; dsum
+    differs between them only in f32 summation order, and each gives
+    one result per input on the card.  Under a ``mesh`` with a model
+    axis each pair covers the class's tuples ``a .. b - 1`` that this
+    rank holds, (2, b - a, h, l) (``TableShard.tuples``), and is None
+    for a class it holds none of.
     """
     resolve_mode(mode, torch.device("cpu"))
     classes = oh.build_table_classes(ts)
@@ -367,7 +369,7 @@ def make_class_grads(ts: TupleSet, mode: str, mesh=None
 
 def _class_grads_fn(resolved: str) -> Callable:
     """The class gradient of a resolved mode: the ``grad_class`` kernel's
-    wrapper, the one-hot products, or the plain ``index_add_``."""
+    wrapper, the one-hot products, or its plain version."""
     if resolved in ("pallas", "search"):
         return kernels.grad_class
     if resolved == "onehot":
@@ -400,14 +402,16 @@ def make_delta_accumulator(ts: TupleSet, mode: str, mesh=None) -> Callable:
     table-level optimizers' gradient (temporal coherence off the
     canonical form, and the "fold" learners).
 
-    "gather" (and "onehot", as in the reference): two ``index_add_``
-    into a zeroed pair.  "pallas": one ``grad_class`` pair per
-    16^2..16^4 class, copied into its columns, and the ``index_add_``
+    "gather" (and "onehot", as in the reference): the rows' dw added
+    into a zeroed pair in a fixed order (``scatter_add_ordered``),
+    and their counts.  "pallas": one ``grad_class`` pair per
+    16^2..16^4 class, copied into its columns, and the same ordered
     pair over the larger classes' columns only.
     Both add each entry's terms in row order on the CPU, so there they
-    agree bit for bit.  Under a ``mesh`` with a model axis
-    ``weights_like`` is this rank's shard and the pair is shard-sized:
-    the entries the shard holds only."""
+    agree bit for bit; on the card each gives one result per input.
+    Under a ``mesh`` with a model axis ``weights_like`` is this rank's
+    shard and the pair is shard-sized: the entries the shard holds
+    only."""
     resolve_mode(mode, torch.device("cpu"))
     classes = oh.build_table_classes(ts)
     shard = _shard_of(ts, mesh)
@@ -419,8 +423,8 @@ def make_delta_accumulator(ts: TupleSet, mode: str, mesh=None) -> Callable:
                            device=weights.device)
         if not uses_kernels(mode, weights.device):
             flat, upd, contrib = _flat_updates(idx, dw, valid, shard)
-            pair[0].index_add_(0, flat, upd)
-            pair[1].index_add_(0, flat, contrib)
+            scatter_add_ordered(pair[0], flat, upd)
+            pair[1].index_add_(0, flat, contrib)  # 0/1: exact in any order
             return pair
         for c in classes.matmul:
             a, b = (0, c.g) if shard is None else shard.tuples(c.feat0, c.g)
@@ -434,27 +438,11 @@ def make_delta_accumulator(ts: TupleSet, mode: str, mesh=None) -> Callable:
         if len(classes.gather_feats):
             gidx = idx[:, _gather_feats(ts.n, idx.device)]
             flat, upd, contrib = _flat_updates(gidx, dw, valid, shard)
-            pair[0].index_add_(0, flat, upd)
-            pair[1].index_add_(0, flat, contrib)
+            scatter_add_ordered(pair[0], flat, upd)
+            pair[1].index_add_(0, flat, contrib)  # 0/1: exact in any order
         return pair
 
     return acc
-
-
-def scatter_add_ordered(table: torch.Tensor, flat: torch.Tensor,
-                        upd: torch.Tensor) -> None:
-    """``table[flat] += upd`` in place (1-D), an entry's terms added in
-    the order of the list, whatever the device.  On CUDA tensors
-    ``index_add_`` adds colliding terms with atomics in no fixed order,
-    and ``index_put_`` with ``accumulate`` sorts the list stably and adds
-    each entry's run in turn; on CPU tensors it is the other way round
-    (``index_add_`` walks the list, ``index_put_`` spreads a long one
-    over threads that add atomically).  Replicas that apply one
-    gathered list this way stay bitwise equal."""
-    if table.device.type == "cuda":
-        table.index_put_((flat,), upd, accumulate=True)
-    else:
-        table.index_add_(0, flat, upd)
 
 
 def make_updater(ts: TupleSet, mode: str, mean: bool, mesh=None) -> Callable:
@@ -466,7 +454,9 @@ def make_updater(ts: TupleSet, mode: str, mean: bool, mesh=None) -> Callable:
     A scatter-add, with each entry's updates divided by its hit count
     this step when ``mean`` (``AgentConfig.update_mode="mean"``).
 
-    "gather": one ``index_add_`` of the rows' (divided) updates.
+    "gather": the rows' (divided) updates added in a fixed order
+    (``scatter_add_ordered``), so one input gives one table on the
+    card as on the CPU.
     "pallas": per 16^2..16^4 class one ``grad_class`` pair, whose dsum
     (over hits under ``mean``) is added to the class block; the larger
     classes as "gather", their hits counted over their own columns.
@@ -478,10 +468,10 @@ def make_updater(ts: TupleSet, mode: str, mean: bool, mesh=None) -> Callable:
     Under a ``mesh`` (``parallel/mesh.py``) the rows are this rank's
     and the update is the global batch's: each class pair is
     all-reduced over the data group, and the scattered rows are
-    all-gathered in rank order and added in the list's order
-    (``scatter_add_ordered``), so the hits are global and every rank's
-    table takes the same bits.  Under a model axis ``weights`` is this
-    rank's shard, and only the entries it holds are updated."""
+    all-gathered in rank order and added in a fixed order, so the
+    hits are global and every rank's table takes the same bits.  Under
+    a model axis ``weights`` is this rank's shard, and only the entries
+    it holds are updated."""
     resolve_mode(mode, torch.device("cpu"))
     classes = oh.build_table_classes(ts)
     shard = _shard_of(ts, mesh)
@@ -492,12 +482,10 @@ def make_updater(ts: TupleSet, mode: str, mean: bool, mesh=None) -> Callable:
             idx, dw, valid = mesh.all_gather_rows(idx, dw, valid)
         flat, upd, contrib = _flat_updates(idx, dw, valid, shard)
         if mean:
+            # 0/1 counts: exact in any order
             hits = torch.zeros_like(weights).index_add_(0, flat, contrib)
             upd = upd / hits[flat].clamp(min=1.0)
-        if mesh is not None:
-            scatter_add_ordered(weights, flat, upd)
-        else:
-            weights.index_add_(0, flat, upd)
+        scatter_add_ordered(weights, flat, upd)
 
     def update(weights: torch.Tensor, idx: torch.Tensor, dw: torch.Tensor,
                valid: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
 """Wrappers of the port's CUDA kernels (``tpu2048/ops/pallas_kernels.py``,
-``tpu2048/ops/fold_kernel.py``).
+``tpu2048/ops/fold_kernel.py``, and the canonical learner's stacked
+scatter, ``tpu2048/agent/td.py:669``).
 
 Each wrapper checks what it is given, launches its kernel on torch's
 current stream for CUDA tensors, and takes its plain PyTorch version
 only for CPU tensors.  Each counts its launches in a plain integer
 attribute (``eval_class.launches``, ``grad_class.launches``,
-``fold_class.launches``), so a run can show that its path went
-through the kernel.
+``fold_class.launches``, ``cross_apply.launches``), so a run can show
+that its path went through the kernel.
 """
 
 from __future__ import annotations
@@ -133,14 +134,40 @@ eval_class.launches = 0
 
 # -- grad_class (K3: pallas_kernels.py::grad_for) ---------------------------
 
+# csrc/grad_class.cu's constants: rows of a count or place block (kTile),
+# the most warps that reduce one bucket (kWarps), the most chunks of a
+# bucket that one warp reduces alone (kSmallChunks), the largest H and L
+GRAD_TILE = 1024
+GRAD_WARPS = 32
+GRAD_SMALL_CHUNKS = 4
+GRAD_MAX_SIDE = 256
+
+
+def scatter_add_ordered(table: torch.Tensor, flat: torch.Tensor,
+                        upd: torch.Tensor) -> None:
+    """``table[flat] += upd`` in place (1-D), each entry's terms added
+    in an order fixed by the list, whatever the device.  On CUDA tensors
+    ``index_add_`` adds colliding terms with atomics in no fixed order,
+    and ``index_put_`` with ``accumulate`` sorts the list and adds each
+    entry's run in a fixed order; on CPU tensors it is the other way
+    round (``index_add_`` walks the list, ``index_put_`` spreads a long
+    one over threads that add atomically).  So one list gives one result
+    on either device (the two devices' results differ by f32 summation
+    order), and replicas that apply one gathered list stay bitwise
+    equal."""
+    if table.device.type == "cuda":
+        table.index_put_((flat,), upd, accumulate=True)
+    else:
+        table.index_add_(0, flat, upd)
+
 
 def grad_class_reference(hi: torch.Tensor, lo: torch.Tensor,
                          dw: torch.Tensor, valid: torch.Tensor, h: int,
                          l: int) -> torch.Tensor:
-    """Plain version of ``grad_class``: ``index_add_`` of the valid
-    rows' dw (and of their count) into the two rows of a zeroed (2, G,
-    H, L) pair.  An out-of-range index of a valid row makes ``dsum[g,
-    0, 0]`` NaN."""
+    """Plain version of ``grad_class``: the valid rows' dw added in row
+    order (``scatter_add_ordered``) and their count (``index_add_``)
+    into the two rows of a zeroed (2, G, H, L) pair.  An out-of-range
+    index of a valid row makes ``dsum[g, 0, 0]`` NaN."""
     b, g = hi.shape
     ok = (hi >= 0) & (hi < h) & (lo >= 0) & (lo < l)
     take = valid[:, None] & ok
@@ -150,11 +177,127 @@ def grad_class_reference(hi: torch.Tensor, lo: torch.Tensor,
     zero = torch.zeros((), dtype=torch.float32, device=hi.device)
     pair = torch.zeros((2, g, h, l), dtype=torch.float32, device=hi.device)
     dsum, hits = pair
-    dsum.view(-1).index_add_(
-        0, flat, torch.where(take, dw[:, None], zero).reshape(-1))
+    scatter_add_ordered(dsum.view(-1), flat,
+                        torch.where(take, dw[:, None], zero).reshape(-1))
+    # 0/1 counts: exact in any order
     hits.view(-1).index_add_(0, flat, take.to(torch.float32).reshape(-1))
     bad = (valid[:, None] & ~ok).any(dim=0)
     dsum[:, 0, 0] = torch.where(bad, float("nan"), dsum[:, 0, 0])
+    return pair
+
+
+def grad_class_order(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
+                     h: int, l: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's stable order by hi (its kernels 1-3) in plain
+    PyTorch: ``(pos, offsets, totals)``.
+
+    Each tile of GRAD_TILE rows counts its rows per (tuple, hi), bin h
+    = H for a valid row with a bad index; one exclusive scan per tuple
+    over (bin, tile) gives ``offsets`` (G, H + 1, tiles) and ``totals``
+    (G,); a row's rank in its tile's bucket is the count of its bucket
+    in the tile's earlier warps plus that of the earlier lanes of its
+    warp.  ``pos`` (B, G) int64: each row's position in its tuple's
+    sorted list, -1 for a row that takes no part."""
+    b, g = hi.shape
+    dev = hi.device
+    tiles = -(-b // GRAD_TILE)
+    ok = (hi >= 0) & (hi < h) & (lo >= 0) & (lo < l)
+    live = valid[:, None] & ok
+    # kernel 1: bins per row and tuple, counted per tile
+    bins = torch.where(live, hi.long(), torch.where(valid[:, None], h, -1))
+    tile = (torch.arange(b, device=dev) // GRAD_TILE)[:, None]
+    gi = torch.arange(g, device=dev)[None, :]
+    counted = bins >= 0
+    cell = ((gi * (h + 1) + bins.clamp(min=0)) * tiles + tile)[counted]
+    counts = torch.bincount(cell, minlength=g * (h + 1) * tiles)
+    # kernel 2: exclusive offsets in (bin, tile) order per tuple
+    counts = counts.view(g, (h + 1) * tiles)
+    totals = counts.sum(dim=1)
+    offsets = (counts.cumsum(dim=1) - counts).view(g, h + 1, tiles)
+    # kernel 3: a row's rank among its tile's earlier rows of its bucket
+    nw = GRAD_TILE // 32
+    pb = torch.full((tiles * GRAD_TILE, g), -1, dtype=torch.long, device=dev)
+    pb[:b] = torch.where(live, hi.long(), -1)
+    lanes = pb.t().reshape(g, tiles, nw, 32)  # (tuple, tile, warp, lane)
+    placed = lanes >= 0
+    hb = lanes.clamp(min=0)
+    below = torch.ones(32, 32, dtype=torch.bool, device=dev).tril(-1)
+    rank = ((lanes[..., :, None] == lanes[..., None, :]) & below).sum(-1)
+    g4 = torch.arange(g, device=dev)[:, None, None, None]
+    t4 = torch.arange(tiles, device=dev)[None, :, None, None]
+    w4 = torch.arange(nw, device=dev)[None, None, :, None]
+    cell = (((g4 * tiles + t4) * nw + w4) * h + hb)[placed]
+    wcount = torch.bincount(cell, minlength=g * tiles * nw * h).view(
+        g, tiles, nw, h)
+    earlier = wcount.cumsum(dim=2) - wcount
+    pos = offsets[g4, hb, t4] + earlier[g4, t4, w4, hb] + rank
+    pos = torch.where(placed, pos, -1).view(g, -1).t()[:b]
+    return pos, offsets, totals
+
+
+def grad_class_ordered(hi: torch.Tensor, lo: torch.Tensor, dw: torch.Tensor,
+                       valid: torch.Tensor, h: int, l: int) -> torch.Tensor:
+    """The kernel's exact arithmetic in plain PyTorch, the same (2, G,
+    H, L) pair as ``grad_class``.  Rows in ``grad_class_order``'s order;
+    bucket (g, hi)'s n rows cut into chunks of 32 positions, taken by W
+    warps, warp w the chunks w, w + W, ... (W = 1 for at most
+    GRAD_SMALL_CHUNKS chunks, else min(GRAD_WARPS, chunks));
+    within a chunk each lo's dw summed in position order from 0.0, that
+    sum added to warp w's accumulator of lo; then the W accumulators
+    added in warp order from 0.0.  The card's ``grad_class`` equals it
+    bitwise."""
+    b, g = hi.shape
+    dev = hi.device
+    pos, offsets, totals = grad_class_order(hi, lo, valid, h, l)
+    rows, tup = (pos >= 0).nonzero(as_tuple=True)
+    # the sorted lists, tuple after tuple: (tuple, position) order
+    order = torch.argsort(tup * max(b, 1) + pos[rows, tup])
+    rows, tup = rows[order], tup[order]
+    hh = hi[rows, tup].long()
+    ll = lo[rows, tup].long()
+    x = dw[rows]
+    start = offsets[tup, hh, 0]
+    size = offsets.view(g, -1)[tup, (hh + 1) * offsets.shape[2]] - start
+    q = pos[rows, tup] - start
+    chunk, lane = q // 32, q % 32
+    chunks = (size + 31) // 32
+    warps = torch.where(chunks <= GRAD_SMALL_CHUNKS, 1,
+                        chunks.clamp(max=GRAD_WARPS))
+    warp, turn = chunk % warps, chunk // warps
+    # each lane's rank among its chunk's lanes of its lo, and its group's
+    # lowest lane (the chunk's lanes sit contiguous in the lists)
+    m = ll.shape[0]
+    idx = torch.arange(m, device=dev)
+    rank = torch.zeros(m, dtype=torch.long, device=dev)
+    lead = idx.clone()
+    for d in range(1, 32):
+        k = (idx - d).clamp(min=0)
+        same = (lane >= d) & (ll[k] == ll)
+        rank += same.long()
+        lead = torch.where(same, k, lead)
+    gsum = torch.zeros(m, dtype=torch.float32, device=dev)
+    for r in range(32):
+        sel = rank == r
+        gsum[lead[sel]] = gsum[lead[sel]] + x[sel]
+    first = rank == 0
+    entry = (tup * h + hh) * l + ll
+    slot = (entry * GRAD_WARPS + warp)[first]
+    slots, aid = torch.unique(slot, return_inverse=True)
+    acc = torch.zeros(slots.shape[0], dtype=torch.float32, device=dev)
+    fturn, fsum = turn[first], gsum[first]
+    for t in range(int(fturn.max()) + 1 if fturn.numel() else 0):
+        sel = fturn == t
+        acc[aid[sel]] = acc[aid[sel]] + fsum[sel]
+    pair = torch.zeros((2, g * h * l), dtype=torch.float32, device=dev)
+    for w in range(GRAD_WARPS):
+        sel = slots % GRAD_WARPS == w
+        at = slots[sel] // GRAD_WARPS
+        pair[0, at] = pair[0, at] + acc[sel]
+    pair[1] = torch.bincount(entry, minlength=g * h * l).to(torch.float32)
+    pair = pair.view(2, g, h, l)
+    bad = totals > offsets[:, h, 0]
+    pair[0, :, 0, 0] = torch.where(bad, float("nan"), pair[0, :, 0, 0])
     return pair
 
 
@@ -167,9 +310,11 @@ def grad_class(hi: torch.Tensor, lo: torch.Tensor, dw: torch.Tensor,
     ``fold_class``'s input as it stands, viewed as (2, G, H * L).
 
     ``hi`` and ``lo`` (B, G) int32, ``dw`` (B,) f32, ``valid`` (B,)
-    bool, any B.  hits are exact; dsum is an f32 sum whose order the
-    card's atomics change from run to run.  Invalid rows take no part;
-    a valid row's out-of-range index makes ``dsum[g, 0, 0]`` NaN.
+    bool, any B.  hits are exact; on the card dsum is an f32 sum in a
+    fixed order (``grad_class_ordered``, H and L at most 256), so one
+    input gives one result, within hits * 2^-23 * sum |dw| of the plain
+    version's row order.  Invalid rows take no part; a valid row's
+    out-of-range index makes ``dsum[g, 0, 0]`` NaN.
     """
     _check_index_pair("grad_class", hi, lo)
     b, g = hi.shape
@@ -183,11 +328,18 @@ def grad_class(hi: torch.Tensor, lo: torch.Tensor, dw: torch.Tensor,
         raise ValueError(f"grad_class: bad block shape H={h}, L={l}")
     if _check_device("grad_class", hi, lo, dw, valid) == "cpu":
         return grad_class_reference(hi, lo, dw, valid, h, l)
-    # the launch zeroes the pair itself (one fill, 16-byte stores,
-    # overlapped with the scatter's start)
+    if max(h, l) > GRAD_MAX_SIDE:
+        raise ValueError(f"grad_class: the kernel takes H, L <= "
+                         f"{GRAD_MAX_SIDE}, not H={h}, L={l}")
+    from .build import load_library
+
+    words = load_library().grad_class_scratch_words(b, g, h)
+    # the launch writes every entry of the pair: no fill first
     pair = torch.empty((2, g, h, l), dtype=torch.float32, device=hi.device)
+    scratch = torch.empty(words, dtype=torch.int32, device=hi.device)
     _launch("grad_class", hi.device, hi.data_ptr(), lo.data_ptr(),
-            dw.data_ptr(), valid.data_ptr(), pair.data_ptr(), b, g, h, l)
+            dw.data_ptr(), valid.data_ptr(), pair.data_ptr(),
+            scratch.data_ptr(), words, b, g, h, l)
     grad_class.launches += 1
     return pair
 
@@ -425,3 +577,147 @@ def fold_class(ts: TupleSet, feat0: int, g: int, pair: torch.Tensor
 
 
 fold_class.launches = 0
+
+
+# -- cross_apply (the crosses' stacked scatter: agent/td.py:669) ------------
+
+
+def tc_rate(e: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The TC per-weight rate |E| / A (1 where A is still 0)."""
+    return torch.where(a > 0.0, e.abs() / a.clamp(min=1e-30), 1.0)
+
+
+def cross_apply_reference(weights: torch.Tensor, opt_e: torch.Tensor,
+                          opt_a: torch.Tensor, alpha: torch.Tensor,
+                          flat: torch.Tensor, per: torch.Tensor,
+                          valid: torch.Tensor, mean: bool) -> None:
+    """Plain version of ``cross_apply``: under ``mean`` each update
+    divided by its entry's valid updates (at least 1); then under TC
+    (``opt_e`` not empty) the rate |E| / A gathered before any update,
+    and ``alpha * rate * p``, ``p`` and ``|p|`` added to the weights, E
+    and A, each in a fixed order (``scatter_add_ordered``); under
+    sgd ``p`` added to the weights.  In place."""
+    if mean:
+        # 0/1 counts: exact in any order
+        hits = torch.zeros(weights.shape[0], dtype=torch.float32,
+                           device=weights.device).index_add_(
+            0, flat, valid.to(torch.float32))
+        per = per / hits[flat].clamp(min=1.0)
+    if not opt_e.numel():
+        scatter_add_ordered(weights, flat, per)
+        return
+    # gather E/A before any of the three scatters
+    rate = tc_rate(opt_e[flat], opt_a[flat])
+    scatter_add_ordered(weights, flat, alpha * rate * per)
+    scatter_add_ordered(opt_e, flat, per)
+    scatter_add_ordered(opt_a, flat, per.abs())
+
+
+def cross_apply_ordered(weights: torch.Tensor, opt_e: torch.Tensor,
+                        opt_a: torch.Tensor, alpha: torch.Tensor,
+                        flat: torch.Tensor, per: torch.Tensor,
+                        valid: torch.Tensor, mean: bool) -> None:
+    """The kernel's exact arithmetic in plain PyTorch, in place, as
+    ``cross_apply`` on the card.  The list sorted stably by entry; in
+    each window of 32 positions (aligned on multiples of 32) each
+    entry's per and |per| summed in position order from 0.0 and its
+    valid updates counted; then per entry its windows' sums added in
+    window order from 0.0, P and Q, and its count n: under "mean" P and
+    Q divided by max(n, 1); TC: ``w += alpha * rate * P``, ``E += P``,
+    ``A += Q``, the rate from E and A before; sgd: ``w += P``.  The
+    card's ``cross_apply`` equals it bitwise."""
+    m = flat.shape[0]
+    if m == 0:
+        return
+    dev = flat.device
+    key, order = torch.sort(flat, stable=True)
+    p_s, v_s = per[order], valid[order]
+    pos = torch.arange(m, device=dev)
+    start = torch.ones(m, dtype=torch.bool, device=dev)
+    start[1:] = key[1:] != key[:-1]
+    run_start = torch.where(start, pos, 0).cummax(dim=0).values
+    lead = torch.maximum(run_start, pos // 32 * 32)  # the group's first
+    rank = pos - lead
+    gp = torch.zeros(m, dtype=torch.float32, device=dev)
+    gq = torch.zeros(m, dtype=torch.float32, device=dev)
+    for r in range(32):
+        sel = rank == r
+        gp[lead[sel]] = gp[lead[sel]] + p_s[sel]
+        gq[lead[sel]] = gq[lead[sel]] + p_s[sel].abs()
+    run = start.long().cumsum(dim=0) - 1
+    first = rank == 0  # one group a window of each run
+    turn = (pos // 32 - run_start // 32)[first]
+    rp = torch.zeros(int(run[-1]) + 1, dtype=torch.float32, device=dev)
+    rq = torch.zeros_like(rp)
+    for t in range(int(turn.max()) + 1):
+        sel = turn == t
+        at = run[first][sel]
+        rp[at] = rp[at] + gp[first][sel]
+        rq[at] = rq[at] + gq[first][sel]
+    k = key[start]
+    if mean:
+        d = torch.bincount(run[v_s], minlength=rp.shape[0])
+        d = d.to(torch.float32).clamp(min=1.0)
+        rp, rq = rp / d, rq / d
+    if not opt_e.numel():
+        weights[k] = weights[k] + rp
+        return
+    rate = tc_rate(opt_e[k], opt_a[k])
+    weights[k] = weights[k] + alpha * rate * rp
+    opt_e[k] = opt_e[k] + rp
+    opt_a[k] = opt_a[k] + rq
+
+
+def cross_apply(weights: torch.Tensor, opt_e: torch.Tensor,
+                opt_a: torch.Tensor, alpha: torch.Tensor,
+                flat: torch.Tensor, per: torch.Tensor, valid: torch.Tensor,
+                mean: bool) -> None:
+    """The canonical learner's sparse update of its gather classes, in
+    place: ``flat`` (M,) int64 table entries, ``per`` (M,) f32 updates
+    (0 where not ``valid``), ``valid`` (M,) bool; TC when ``opt_e`` and
+    ``opt_a`` hold the table's sums, sgd when they are empty; ``alpha``
+    the f32 meta-rate or rate.  On the card one stable sort of ``flat``
+    serves all three tables, and each entry's terms are summed in a
+    fixed order before one add to each table (``cross_apply_ordered``,
+    bitwise), so one input gives one result; that differs from the plain
+    version's term-by-term adds (``cross_apply_reference``, the CPU's)
+    by f32 summation order only."""
+    tc = bool(opt_e.numel())
+    tables = (weights, opt_e, opt_a) if tc else (weights,)
+    for t in tables:
+        if t.dtype != torch.float32 or t.dim() != 1 or \
+                t.shape != weights.shape:
+            raise TypeError(f"cross_apply: tables must be ({weights.shape[0]},)"
+                            f" float32, got {tuple(t.shape)} {t.dtype}")
+    m = flat.shape[0]
+    if flat.dtype != torch.int64 or flat.shape != (m,) or \
+            per.dtype != torch.float32 or per.shape != (m,) or \
+            valid.dtype != torch.bool or valid.shape != (m,):
+        raise TypeError("cross_apply: flat (M,) int64, per (M,) float32 and "
+                        "valid (M,) bool expected, got "
+                        f"{flat.dtype} {tuple(flat.shape)}, {per.dtype} "
+                        f"{tuple(per.shape)}, {valid.dtype} "
+                        f"{tuple(valid.shape)}")
+    if alpha.dtype != torch.float32 or alpha.numel() != 1:
+        raise TypeError("cross_apply: alpha must be one float32")
+    kind = _check_device("cross_apply", *tables, alpha, flat, per, valid)
+    if kind == "cpu":
+        cross_apply_reference(weights, opt_e, opt_a, alpha, flat, per, valid,
+                              mean)
+        return
+    if m >= 2**31 or weights.shape[0] >= 2**31:
+        raise ValueError(f"cross_apply: {m} updates of {weights.shape[0]} "
+                         "entries are past int32 counting")
+    # int32 keys: half the radix passes of int64 ones
+    key, order = torch.sort(flat.to(torch.int32), stable=True)
+    per, valid = per[order], valid[order]
+    scratch = torch.empty(3 * m, dtype=torch.int32, device=flat.device)
+    _launch("cross_apply", flat.device, key.data_ptr(), per.data_ptr(),
+            valid.data_ptr(), scratch.data_ptr(), weights.data_ptr(),
+            opt_e.data_ptr() if tc else None,
+            opt_a.data_ptr() if tc else None, alpha.data_ptr(), m,
+            int(mean), int(tc))
+    cross_apply.launches += 1
+
+
+cross_apply.launches = 0
