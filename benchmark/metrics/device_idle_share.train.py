@@ -1,0 +1,8 @@
+"""The share of the traced train stretch in which no operation ran on
+the card, in %."""
+
+
+def read(ctx):
+    if ctx["kind"] != "train" or ctx["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - ctx["busy_s"] / ctx["window_s"])
