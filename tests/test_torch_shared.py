@@ -69,7 +69,8 @@ def test_agent_config_from_dict_crosses():
 
 
 # copied verbatim: the code and docstrings of each are the original's
-# (comments aside: LocalStore words one of its comments differently)
+# (comments aside: LocalStore words one of its comments differently),
+# apart from what ``ADDED`` lists
 VERBATIM = [
     (jart, tart, ["ArtifactStore", "_encode", "_decode", "_SerializingStore",
                   "LocalStore", "MemoryStore", "S3Store", "open_store"]),
@@ -95,11 +96,27 @@ VERBATIM = [
 ]
 
 
+# what the port adds to a copy, taken out before the comparison: a
+# ``Timer`` section is also a span of the port's profiler
+ADDED = {(tprof, "Timer"): ("            with span(name):\n"
+                            "                yield\n",
+                            "            yield\n")}
+
+
+def _port_code(copy, name: str) -> list:
+    source = inspect.getsource(getattr(copy, name))
+    if (copy, name) in ADDED:
+        added, orig = ADDED[copy, name]
+        assert source.count(added) == 1, name
+        source = source.replace(added, orig)
+    return _code_of(source)
+
+
 @pytest.mark.parametrize("orig,copy,names", VERBATIM,
                          ids=[c.__name__ for _, c, _ in VERBATIM])
 def test_copies_are_verbatim(orig, copy, names):
     for name in names:
-        assert _code(getattr(copy, name)) == _code(getattr(orig, name)), name
+        assert _port_code(copy, name) == _code(getattr(orig, name)), name
 
 
 # the copies that load an agent's table take it onto the CPU by name:

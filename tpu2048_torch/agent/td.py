@@ -108,6 +108,7 @@ from ..features.canonical import (_gather_feat_ids, canonical_gather_indices,
                                   is_canonical)
 from ..features.ntuple import TupleSet
 from ..features.symmetry import symmetrize_class_sum, symmetrize_sum
+from ..obs.profiler import span
 from ..ops import dispatch as table_dispatch
 from ..ops import kernels
 
@@ -552,196 +553,210 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
         ar = torch.arange(n, device=device)
 
         # --- greedy selection over the 4 afterstates ------------------
-        if codes_mode:
-            codes = state.env.codes
-            aftc, delta4, legal, _t = engf.afterstates_full(codes)
-            cells4 = engf.cells_from_codes(aftc)  # (4, N, 16)
-            # up/down come back transposed: permute their cells back
-            tperm = _tperm(device)
-            cells4 = torch.stack([cells4[0], cells4[1][..., tperm],
-                                  cells4[2], cells4[3][..., tperm]])
-            mxu4, gth4, idx4, cidx4, mult4 = train_ev(state.weights, cells4)
-            masked = torch.where(legal, mxu4 + gth4, float("-inf"))
-            # argmax takes the first maximum in both frameworks
-            best_dir = masked.argmax(dim=0).to(torch.int32)
-            sel_i = best_dir.long()
+        with span("td.actor"):
+            if codes_mode:
+                codes = state.env.codes
+                aftc, delta4, legal, _t = engf.afterstates_full(codes)
+                cells4 = engf.cells_from_codes(aftc)  # (4, N, 16)
+                # up/down come back transposed: permute their cells back
+                tperm = _tperm(device)
+                cells4 = torch.stack([cells4[0], cells4[1][..., tperm],
+                                      cells4[2], cells4[3][..., tperm]])
+                mxu4, gth4, idx4, cidx4, mult4 = train_ev(state.weights,
+                                                          cells4)
+                masked = torch.where(legal, mxu4 + gth4, float("-inf"))
+                # argmax takes the first maximum in both frameworks
+                best_dir = masked.argmax(dim=0).to(torch.int32)
+                sel_i = best_dir.long()
 
-            def sel(x4):
-                return x4[sel_i, ar]
+                def sel(x4):
+                    return x4[sel_i, ar]
 
-            best_delta = sel(delta4)
-            done = ~legal.any(dim=0)
-            idx_c = sel(idx4)  # (N, F)
-            # the chosen board's cells: for its 8 images under "index"
-            chosen_cells = sel(cells4) if num_sym == 8 else None
-            if actor_bf16:
-                # exact TD bootstrap from the chosen afterstate's
-                # indices, read before this step's update (unused on
-                # done rows)
-                best_val = mxu_exact(state.weights, idx_c) + sel(gth4)
+                best_delta = sel(delta4)
+                done = ~legal.any(dim=0)
+                idx_c = sel(idx4)  # (N, F)
+                # the chosen board's cells: for its 8 images under "index"
+                chosen_cells = sel(cells4) if num_sym == 8 else None
+                if actor_bf16:
+                    # exact TD bootstrap from the chosen afterstate's
+                    # indices, read before this step's update (unused on
+                    # done rows)
+                    best_val = mxu_exact(state.weights, idx_c) + sel(gth4)
+                else:
+                    best_val = sel(masked)
+                chosen_codes = engf.canonicalize_chosen(sel(aftc), best_dir)
             else:
-                best_val = sel(masked)
-            chosen_codes = engf.canonicalize_chosen(sel(aftc), best_dir)
-        else:
-            boards = state.env.boards
-            chosen, best_dir, best_val, best_delta, done = select(
-                state.weights, boards)
-            chosen_cells = chosen.reshape(n, 16)
+                boards = state.env.boards
+                chosen, best_dir, best_val, best_delta, done = select(
+                    state.weights, boards)
+                chosen_cells = chosen.reshape(n, 16)
 
         # --- TD update of the previous afterstate ---------------------
-        td_err = torch.where(done, -state.prev_value,
-                             best_delta.to(torch.float32) + best_val
-                             - state.prev_value)
-        if canon:
-            delta = torch.where(state.prev_valid, td_err, 0.0) / float(num_feat)
-            if not tc:
-                delta = delta * state.alpha
-            class_block_update(state, delta)
-            if state.prev_cidx.shape[1]:
+        with span("td.class_chain"):
+            td_err = torch.where(done, -state.prev_value,
+                                 best_delta.to(torch.float32) + best_val
+                                 - state.prev_value)
+            if canon:
+                delta = torch.where(state.prev_valid, td_err,
+                                    0.0) / float(num_feat)
+                if not tc:
+                    delta = delta * state.alpha
+                class_block_update(state, delta)
+            else:
+                table_update(state, td_err)
+        with span("td.crosses"):
+            if canon and state.prev_cidx.shape[1]:
                 cross_update(state, delta)
-        else:
-            table_update(state, td_err)
 
         # --- advance the environments ---------------------------------
-        new_score = torch.where(done, score, score + best_delta)
-        new_odo = torch.where(done, state.env.odometer,
-                              state.env.odometer + 1)
-        if codes_mode:
-            done_c = done[:, None]
-            moved = torch.where(done_c, codes, chosen_codes)
-            spawned, pos, val = engf.spawn_codes(moved, draws)
-            env = engf.EnvStateC(codes=torch.where(done_c, codes, spawned),
-                                 score=new_score, odometer=new_odo)
-            tiles = engf.max_tile_codes(codes)
-        else:
-            done_b = done[:, None, None]
-            moved = torch.where(done_b, boards, chosen)
-            spawned, pos, val = engine.spawn(moved, draws)
-            env = engine.EnvState(boards=torch.where(done_b, boards, spawned),
-                                  score=new_score, odometer=new_odo)
-            tiles = engine.max_tile(boards)
+        with span("td.env"):
+            new_score = torch.where(done, score, score + best_delta)
+            new_odo = torch.where(done, state.env.odometer,
+                                  state.env.odometer + 1)
+            if codes_mode:
+                done_c = done[:, None]
+                moved = torch.where(done_c, codes, chosen_codes)
+                spawned, pos, val = engf.spawn_codes(moved, draws)
+                env = engf.EnvStateC(codes=torch.where(done_c, codes, spawned),
+                                     score=new_score, odometer=new_odo)
+                tiles = engf.max_tile_codes(codes)
+            else:
+                done_b = done[:, None, None]
+                moved = torch.where(done_b, boards, chosen)
+                spawned, pos, val = engine.spawn(moved, draws)
+                env = engine.EnvState(boards=torch.where(done_b, boards,
+                                                         spawned),
+                                      score=new_score, odometer=new_odo)
+                tiles = engine.max_tile(boards)
 
         # --- recorder: rows staged, or written into the logs ----------
-        rec = state.recorder
-        done_r = done[:r_env]
-        odo_r = state.env.odometer[:r_env]
-        overflow = rec.overflow | (~done_r & (odo_r >= s_max))
-        rec_on = ~done_r & ~overflow
-        done_rec = done_r & ~overflow
-        mv = best_dir[:r_env].to(torch.int8)
-        sp = (pos[:r_env] | ((val[:r_env] - 1) << 4)).to(torch.int8)
-        wslot = torch.where(rec_on, odo_r, s_max).to(torch.int32)
-        cand = torch.where(done_rec, score[:r_env], -1)
-        if staged:
-            recinfo = RecStep(
-                mv=mv, sp=sp, wslot=wslot, done=done_r, cand=cand,
-                odo=odo_r,
-                sb=torch.where(done_rec[:, None],
-                               rec.starts.reshape(r_env, 16), 0
-                               ).to(torch.int8),
-            )
-        else:
-            # non-recording lanes write the spill column S
-            rows = torch.arange(r_env, device=device)
-            rec.moves.index_put_((rows, wslot.long()), mv)
-            rec.spawns.index_put_((rows, wslot.long()), sp)
-            # the best finished game, from its log row after this write
-            if r_env:
-                best_i = cand.argmax().view(1)
-                best = _BestGame(
-                    score=cand[best_i][0],
-                    moves=rec.moves.index_select(0, best_i)[0, :s_max],
-                    spawns=rec.spawns.index_select(0, best_i)[0, :s_max],
-                    start=rec.starts.index_select(0, best_i)[0],
-                    length=state.env.odometer[best_i][0].clamp(max=s_max))
+        with span("td.recorder"):
+            rec = state.recorder
+            done_r = done[:r_env]
+            odo_r = state.env.odometer[:r_env]
+            overflow = rec.overflow | (~done_r & (odo_r >= s_max))
+            rec_on = ~done_r & ~overflow
+            done_rec = done_r & ~overflow
+            mv = best_dir[:r_env].to(torch.int8)
+            sp = (pos[:r_env] | ((val[:r_env] - 1) << 4)).to(torch.int8)
+            wslot = torch.where(rec_on, odo_r, s_max).to(torch.int32)
+            cand = torch.where(done_rec, score[:r_env], -1)
+            if staged:
+                recinfo = RecStep(
+                    mv=mv, sp=sp, wslot=wslot, done=done_r, cand=cand,
+                    odo=odo_r,
+                    sb=torch.where(done_rec[:, None],
+                                   rec.starts.reshape(r_env, 16), 0
+                                   ).to(torch.int8),
+                )
             else:
-                best = _no_best_game(s_max, device)
-            if mesh is not None:
-                best = _global_best(mesh, best, torch.zeros_like(best.score),
-                                    span=1)
-            rec = _take_best(rec, best)
+                # non-recording lanes write the spill column S
+                rows = torch.arange(r_env, device=device)
+                rec.moves.index_put_((rows, wslot.long()), mv)
+                rec.spawns.index_put_((rows, wslot.long()), sp)
+                # the best finished game, from its log row after this write
+                if r_env:
+                    best_i = cand.argmax().view(1)
+                    best = _BestGame(
+                        score=cand[best_i][0],
+                        moves=rec.moves.index_select(0, best_i)[0, :s_max],
+                        spawns=rec.spawns.index_select(0, best_i)[0, :s_max],
+                        start=rec.starts.index_select(0, best_i)[0],
+                        length=state.env.odometer[best_i][0].clamp(max=s_max))
+                else:
+                    best = _no_best_game(s_max, device)
+                if mesh is not None:
+                    best = _global_best(mesh, best,
+                                        torch.zeros_like(best.score), span=1)
+                rec = _take_best(rec, best)
 
         # --- episode-completion metrics -------------------------------
-        met = state.metrics
-        # the rings are replicated and written in global env order
-        done_g, score_g, tiles_g = (done, score, tiles) if mesh is None else \
-            mesh.all_gather_rows(done, score, tiles.to(torch.int32))
-        n_done = done_g.sum(dtype=torch.int32)
-        order = done_g.cumsum(0, dtype=torch.int32) - 1
-        wpos = torch.where(done_g, (met.ring_pos + order) % ring, ring).long()
-        # the lanes that finished nothing all write 0 into the trash
-        # slot, so that it holds the same bits whichever write lands
-        score_done = torch.where(done_g, score_g, 0)
-        tiles_done = torch.where(done_g, tiles_g, 0)
-        met.score_ring.index_put_((wpos,), score_done)
-        met.tile_ring.index_put_((wpos,), tiles_done)
-        metrics = Metrics(
-            episodes=met.episodes + n_done,
-            score_ring=met.score_ring,
-            tile_ring=met.tile_ring,
-            ring_pos=met.ring_pos + n_done,
-            best_score=torch.maximum(met.best_score, score_done.max()),
-        )
+        with span("td.episodes"):
+            met = state.metrics
+            # the rings are replicated and written in global env order
+            done_g, score_g, tiles_g = (done, score, tiles) if mesh is None else \
+                mesh.all_gather_rows(done, score, tiles.to(torch.int32))
+            n_done = done_g.sum(dtype=torch.int32)
+            order = done_g.cumsum(0, dtype=torch.int32) - 1
+            wpos = torch.where(done_g, (met.ring_pos + order) % ring,
+                               ring).long()
+            # the lanes that finished nothing all write 0 into the trash
+            # slot, so that it holds the same bits whichever write lands
+            score_done = torch.where(done_g, score_g, 0)
+            tiles_done = torch.where(done_g, tiles_g, 0)
+            met.score_ring.index_put_((wpos,), score_done)
+            met.tile_ring.index_put_((wpos,), tiles_done)
+            metrics = Metrics(
+                episodes=met.episodes + n_done,
+                score_ring=met.score_ring,
+                tile_ring=met.tile_ring,
+                ring_pos=met.ring_pos + n_done,
+                best_score=torch.maximum(met.best_score, score_done.max()),
+            )
 
-        # --- alpha schedule (skipped by the self-annealing TC rule) ---
-        alpha, next_decay = state.alpha, state.next_decay
-        mt_done = tiles_done.max()
-        top_tile = torch.maximum(state.top_tile, mt_done)
-        if not tc:
-            # f32 throughout: the Python floats take the tensor's type
-            low = acfg.low_alpha_limit
+            # --- alpha schedule (skipped by the self-annealing TC rule)
+            alpha, next_decay = state.alpha, state.next_decay
+            mt_done = tiles_done.max()
+            top_tile = torch.maximum(state.top_tile, mt_done)
+            if not tc:
+                # f32 throughout: the Python floats take the tensor's type
+                low = acfg.low_alpha_limit
 
-            def decayed(a):
-                return _round4((a * acfg.decay).clamp(min=low))
+                def decayed(a):
+                    return _round4((a * acfg.decay).clamp(min=low))
 
-            # every decay_step episodes (the count after this step's
-            # completions), and at a new top tile (against the old one)
-            trig1 = (metrics.episodes > next_decay) & (alpha > low)
-            alpha = torch.where(trig1, decayed(alpha), alpha)
-            trig2 = mt_done > state.top_tile
-            alpha = torch.where(trig2, decayed(alpha), alpha)
-            next_decay = torch.where(trig1 | trig2,
-                                     metrics.episodes + acfg.decay_step,
-                                     next_decay)
+                # every decay_step episodes (the count after this step's
+                # completions), and at a new top tile (against the old one)
+                trig1 = (metrics.episodes > next_decay) & (alpha > low)
+                alpha = torch.where(trig1, decayed(alpha), alpha)
+                trig2 = mt_done > state.top_tile
+                alpha = torch.where(trig2, decayed(alpha), alpha)
+                next_decay = torch.where(trig1 | trig2,
+                                         metrics.episodes + acfg.decay_step,
+                                         next_decay)
 
         # --- auto-reset finished envs ---------------------------------
-        if codes_mode:
-            env = engf.reset_where_codes(env, done, draws)
-            fresh = engf.boards_from_codes(env.codes[:r_env])
-        else:
-            env = engine.reset_where(env, done, draws)
-            fresh = env.boards[:r_env]
-        starts = torch.where(done_r[:, None, None], fresh, rec.starts)
-        overflow = overflow & ~done_r
-
-        # --- next step's bootstrap state ------------------------------
-        if num_sym == 8:
-            sym_idx = ntuple.all_symmetry_indices(ts, chosen_cells)
-        elif codes_mode:
-            sym_idx = idx_c[:, None, :]  # selected, not recomputed
-        else:
-            sym_idx = ntuple.feature_indices(ts, chosen_cells)[:, None, :]
-        prev_cidx, prev_cmult = state.prev_cidx, state.prev_cmult
-        if prev_cidx.shape[1]:
+        with span("td.reset"):
             if codes_mode:
-                cidx_n, cmult_n = sel(cidx4), sel(mult4)
+                env = engf.reset_where_codes(env, done, draws)
+                fresh = engf.boards_from_codes(env.codes[:r_env])
             else:
-                cidx_n, cmult_n = canonical_gather_indices(ts, chosen_cells)
-            prev_cidx = torch.where(done[:, None], prev_cidx, cidx_n)
-            prev_cmult = torch.where(done[:, None], prev_cmult, cmult_n)
-        out = state._replace(
-            alpha=alpha,
-            next_decay=next_decay,
-            top_tile=top_tile,
-            env=env,
-            prev_idx=torch.where(done[:, None, None], state.prev_idx, sym_idx),
-            prev_value=torch.where(done, 0.0, best_val),
-            prev_valid=~done,
-            metrics=metrics,
-            recorder=rec._replace(starts=starts, overflow=overflow),
-            prev_cidx=prev_cidx,
-            prev_cmult=prev_cmult,
-        )
+                env = engine.reset_where(env, done, draws)
+                fresh = env.boards[:r_env]
+            starts = torch.where(done_r[:, None, None], fresh, rec.starts)
+            overflow = overflow & ~done_r
+
+            # --- next step's bootstrap state --------------------------
+            if num_sym == 8:
+                sym_idx = ntuple.all_symmetry_indices(ts, chosen_cells)
+            elif codes_mode:
+                sym_idx = idx_c[:, None, :]  # selected, not recomputed
+            else:
+                sym_idx = ntuple.feature_indices(ts,
+                                                 chosen_cells)[:, None, :]
+            prev_cidx, prev_cmult = state.prev_cidx, state.prev_cmult
+            if prev_cidx.shape[1]:
+                if codes_mode:
+                    cidx_n, cmult_n = sel(cidx4), sel(mult4)
+                else:
+                    cidx_n, cmult_n = canonical_gather_indices(ts,
+                                                               chosen_cells)
+                prev_cidx = torch.where(done[:, None], prev_cidx, cidx_n)
+                prev_cmult = torch.where(done[:, None], prev_cmult, cmult_n)
+            out = state._replace(
+                alpha=alpha,
+                next_decay=next_decay,
+                top_tile=top_tile,
+                env=env,
+                prev_idx=torch.where(done[:, None, None], state.prev_idx,
+                                     sym_idx),
+                prev_value=torch.where(done, 0.0, best_val),
+                prev_valid=~done,
+                metrics=metrics,
+                recorder=rec._replace(starts=starts, overflow=overflow),
+                prev_cidx=prev_cidx,
+                prev_cmult=prev_cmult,
+            )
         return (out, recinfo) if staged else out
 
     return train_step
@@ -935,26 +950,32 @@ def make_train_segment(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     tables are replicated under a ``mesh`` without a model axis, so
     every rank projects its own with no collective, and under one each
     rank projects its shard from one all-gather of each table
-    (``_symmetrize_sum``)."""
+    (``_symmetrize_sum``).  Under a profiler the segment, its steps and
+    each step's stages are spans (``obs/profiler.py``)."""
     step = make_train_step(ts, acfg, tcfg, draws, mesh=mesh)
 
     def segment(state: TDState) -> TDState:
-        starts0 = state.recorder.starts
-        recs: List[RecStep] = []
-        for _ in range(tcfg.steps_per_call):
-            state, rs = step(state)
-            recs.append(rs)
-        stacked = RecStep(*(torch.stack(f) for f in zip(*recs)))
-        state = state._replace(recorder=_merge_staged_recorder(
-            state.recorder, starts0, stacked, tcfg.max_record_steps, mesh))
-        if acfg.sym_mode == "periodic":
-            # symmetrize_table: the orbit sum over 8
-            state = state._replace(
-                weights=_symmetrize_sum(ts, state.weights, mesh) / 8.0)
-            if acfg.optimizer == "tc":
-                state = state._replace(
-                    opt_e=_symmetrize_sum(ts, state.opt_e, mesh) / 8.0,
-                    opt_a=_symmetrize_sum(ts, state.opt_a, mesh) / 8.0)
+        with span("td.segment"):
+            starts0 = state.recorder.starts
+            recs: List[RecStep] = []
+            for _ in range(tcfg.steps_per_call):
+                with span("td.step"):
+                    state, rs = step(state)
+                recs.append(rs)
+            with span("td.merge"):
+                stacked = RecStep(*(torch.stack(f) for f in zip(*recs)))
+                state = state._replace(recorder=_merge_staged_recorder(
+                    state.recorder, starts0, stacked, tcfg.max_record_steps,
+                    mesh))
+            if acfg.sym_mode == "periodic":
+                with span("td.symmetrize"):
+                    # symmetrize_table: the orbit sum over 8
+                    state = state._replace(
+                        weights=_symmetrize_sum(ts, state.weights, mesh) / 8.0)
+                    if acfg.optimizer == "tc":
+                        state = state._replace(
+                            opt_e=_symmetrize_sum(ts, state.opt_e, mesh) / 8.0,
+                            opt_a=_symmetrize_sum(ts, state.opt_a, mesh) / 8.0)
         return state
 
     return segment

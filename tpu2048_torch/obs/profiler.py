@@ -1,9 +1,37 @@
 """Profiling hooks of the port (``tpu2048/obs/profiler.py``): a timing
-context for the host loop (``Timer``, copied), and ``device_trace``,
-the reference's ``jax.profiler`` capture done with ``torch.profiler``:
-a trace that TensorBoard's profiler plugin and Perfetto read;
-``device_events`` lists the card's work in a ``torch.profiler``
-trace.
+context for the host loop (``Timer``, copied, its sections also spans),
+and ``device_trace``, the reference's ``jax.profiler`` capture done
+with ``torch.profiler``: a trace that TensorBoard's profiler plugin and
+Perfetto read; ``device_events`` lists the card's work in a
+``torch.profiler`` trace.
+
+The program marks its stages with ``span(name)`` and counts what it
+decides with ``count(name, n)``.  Both act only while a
+``torch.profiler`` session records (``device_trace``, or any caller's
+own): then a span is a ``record_function`` range, on the profiler's
+clock in the same trace as the card's kernels (the card's side of it
+is the trace's ``gpu_user_annotation`` range), and a count adds to
+``counters``.  Otherwise each is one check and nothing else.
+
+The spans, ``layer.stage``, nested as listed:
+
+  * ``td.segment`` > ``td.step`` (K of them), ``td.merge``,
+    ``td.symmetrize``; ``td.step`` > ``td.actor``, ``td.class_chain``,
+    ``td.crosses``, ``td.env``, ``td.recorder``, ``td.episodes``,
+    ``td.reset`` (``agent/td.py``);
+  * ``trial.step`` > ``trial.engine``, ``search.base``,
+    ``search.need_read``, ``search.compact``, ``search.tree``,
+    ``trial.select``; ``search.tree`` > ``search.expand``,
+    ``search.value``, ``search.backup`` at each level of the tree
+    (``train/trial.py``, ``search/expectimax.py``); ``trial.read`` and
+    ``trial.progress`` between segments;
+  * ``Timer`` sections by their own names (``Trainer.run``'s
+    ``train_segment``, ``metrics_read``, ``checkpoint``).
+
+The counters: ``host_reads``, the search loop's reads that wait for
+the card (the tier choice and the segment's read); ``search.steps``;
+``search.roots_needy``, the roots that needed the tree;
+``search.roots_expanded``, the roots the tree ran, padding included.
 """
 
 from __future__ import annotations
@@ -15,6 +43,29 @@ import socket
 import tempfile
 import time
 from typing import Dict, Iterator, Optional
+
+import torch
+
+# one shared context for every span while no profiler records
+_OFF = contextlib.nullcontext()
+
+# what ``count`` adds up while a profiler records; a reader takes it
+# after its traced stretch
+counters: Dict[str, int] = {}
+
+
+def span(name: str):
+    """A named stage of the program: a ``record_function`` range while
+    a ``torch.profiler`` session records, else a shared no-op."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to ``counters[name]`` while a profiler records."""
+    if torch.autograd._profiler_enabled():
+        counters[name] = counters.get(name, 0) + n
 
 
 class Timer:
@@ -28,7 +79,8 @@ class Timer:
     def section(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.totals[name] = self.totals.get(name, 0.0) + dt
@@ -58,7 +110,6 @@ def device_trace(logdir: Optional[str]) -> Iterator[None]:
     if not logdir:
         yield
         return
-    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, supported_activities
 

@@ -29,6 +29,7 @@ import torch
 from ..draws import SearchKey
 from ..engine import core as engine
 from ..engine import fast as engf
+from ..obs.profiler import count, span
 
 ValueFn = Callable[[torch.Tensor], torch.Tensor]  # (B,4,4) -> (B,) f32
 
@@ -98,22 +99,25 @@ def expectimax_value(
 ) -> torch.Tensor:
     """Expectimax value of a batch of AFTERSTATE boards (B, 4, 4),
     expanded with the cells engine."""
-    base = value_fn(boards)
+    with span("search.value"):
+        base = value_fn(boards)
     if depth == 0:
         return base
     b = boards.shape[0]
-    empty = (boards.reshape(b, 16) == 0).sum(dim=1)
-    noise, u, k_rec = key.level(depth, b, width)
-    children, valid = _sample_spawns(boards, width, noise, u)
-    flat_children = children.reshape(b * width, 4, 4)
-    dead = engine.is_terminal(flat_children)
-    aft, _, legal = engine.afterstates(flat_children)  # (4, B*W, ...)
+    with span("search.expand"):
+        empty = (boards.reshape(b, 16) == 0).sum(dim=1)
+        noise, u, k_rec = key.level(depth, b, width)
+        children, valid = _sample_spawns(boards, width, noise, u)
+        flat_children = children.reshape(b * width, 4, 4)
+        dead = engine.is_terminal(flat_children)
+        aft, _, legal = engine.afterstates(flat_children)  # (4, B*W, ...)
     child_vals = expectimax_value(
         value_fn, aft.reshape(4 * b * width, 4, 4), k_rec, depth - 1,
         width, since_empty,
     ).reshape(4, b * width)
-    return _node_values(base, empty, child_vals, legal, dead, valid,
-                        since_empty)
+    with span("search.backup"):
+        return _node_values(base, empty, child_vals, legal, dead, valid,
+                            since_empty)
 
 
 def _sample_spawns_codes(codes: torch.Tensor, width: int,
@@ -148,26 +152,29 @@ def expectimax_value_codes(
     """Codes-engine expectimax: the values of ``expectimax_value`` on
     (B, 4) row codes.  Each level resolves all 4 moves of every chance
     child with ``afterstates_nc``; deadness is "no legal move"."""
-    cells = engf.cells_from_codes(codes)
-    base = value_fn(cells.reshape(cells.shape[:-1] + (4, 4)))
+    with span("search.value"):
+        cells = engf.cells_from_codes(codes)
+        base = value_fn(cells.reshape(cells.shape[:-1] + (4, 4)))
     if depth == 0:
         return base
     b = codes.shape[0]
-    empty = (cells == 0).sum(dim=1)
-    noise, u, k_rec = key.level(depth, b, width)
-    children, valid = _sample_spawns_codes(codes, width, noise, u)
-    aft, legal, _t = engf.afterstates_nc(children.reshape(b * width, 4))
-    dead = ~legal.any(dim=0)  # == is_terminal(children)
-    # up/down come back transposed: turn them back so the recursion and
-    # the feature indices see the boards of the cells engine
-    aft = torch.stack([aft[0], engf.transpose_codes(aft[1]),
-                       aft[2], engf.transpose_codes(aft[3])])
+    with span("search.expand"):
+        empty = (cells == 0).sum(dim=1)
+        noise, u, k_rec = key.level(depth, b, width)
+        children, valid = _sample_spawns_codes(codes, width, noise, u)
+        aft, legal, _t = engf.afterstates_nc(children.reshape(b * width, 4))
+        dead = ~legal.any(dim=0)  # == is_terminal(children)
+        # up/down come back transposed: turn them back so the recursion
+        # and the feature indices see the boards of the cells engine
+        aft = torch.stack([aft[0], engf.transpose_codes(aft[1]),
+                           aft[2], engf.transpose_codes(aft[3])])
     child_vals = expectimax_value_codes(
         value_fn, aft.reshape(4 * b * width, 4), k_rec, depth - 1, width,
         since_empty,
     ).reshape(4, b * width)
-    return _node_values(base, empty, child_vals, legal, dead, valid,
-                        since_empty)
+    with span("search.backup"):
+        return _node_values(base, empty, child_vals, legal, dead, valid,
+                            since_empty)
 
 
 def make_expectimax_estimator(
@@ -212,9 +219,11 @@ def make_expectimax_estimator(
         per_chunk = max(1, max_leaves // (4 * width) ** depth)
         if b <= per_chunk:
             estimator.chunks += 1
+            count("search.roots_expanded", b)
             return tree(roots, key)
         chunks = -(-b // per_chunk)
         padded = chunks * per_chunk
+        count("search.roots_expanded", padded)
         if padded != b:
             roots = torch.cat([roots, roots.new_zeros((padded - b,) + tail)])
         vals = [tree(roots[i * per_chunk: (i + 1) * per_chunk], k)
@@ -282,17 +291,26 @@ def make_compacted_estimator(
 
     def estimator(roots: torch.Tensor, key: SearchKey,
                   need: torch.Tensor) -> torch.Tensor:
-        base = _base_value(value_fn, roots, codes_in)
-        c = int(need.sum())  # the host's one read of the step
+        with span("search.base"):
+            base = _base_value(value_fn, roots, codes_in)
+        with span("search.need_read"):
+            c = int(need.sum())  # the host's one read of the step
+            count("host_reads")
+        count("search.roots_needy", c)
         if c == 0:
             estimator.tier_counts[0] += 1
             return base
         k = next(s for s in sizes if c <= s)
         estimator.tier_counts[k] += 1
         if k == batch:
-            return torch.where(need, est(roots, key), base)
-        idx = _top_k_rows(need, k)
-        tv = est(roots[idx], key)
+            with span("search.tree"):
+                tv = est(roots, key)
+            return torch.where(need, tv, base)
+        with span("search.compact"):
+            idx = _top_k_rows(need, k)
+            sub = roots[idx]
+        with span("search.tree"):
+            tv = est(sub, key)
         out = base.clone()
         out[idx] = torch.where(need[idx], tv, base[idx])
         return out

@@ -10,7 +10,9 @@ root-compacted expectimax (``search/expectimax.py``).
 The reference rolls ``steps_per_call`` steps into one ``lax.scan``;
 here a segment is a Python loop of the same steps, and the host reads
 the device once per segment, and with search once more per step (the
-compacted estimator's tier choice).
+compacted estimator's tier choice).  Under a profiler each step, its
+stages and the reads are spans, and the search counts its reads and
+roots (``obs/profiler.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..engine import core as engine
 from ..engine import fast as engf
 from ..features import ntuple
 from ..obs.logging import Logger
+from ..obs.profiler import count, span
 from ..search.expectimax import make_compacted_estimator
 from . import card_device
 
@@ -97,13 +100,26 @@ def _make_eval_segment(ts, scfg: SearchConfig, n: int, s_cap: int,
 
     def step(st: _EvalState, weights, tperm, ar) -> _EvalState:
         draws.split()
-        aft, delta, legal, _t = engf.afterstates_full(st.codes)
-        # canonical cells for all 4 afterstates (up/down come back
-        # transposed; a cell permutation restores canonical order)
-        cells4 = engf.cells_from_codes(aft)  # (4, N, 16)
-        cells4 = torch.stack(
-            [cells4[0], cells4[1][..., tperm], cells4[2], cells4[3][..., tperm]]
-        )
+        with span("trial.engine"):
+            aft, delta, legal, _t = engf.afterstates_full(st.codes)
+            # canonical cells for all 4 afterstates (up/down come back
+            # transposed; a cell permutation restores canonical order)
+            cells4 = engf.cells_from_codes(aft)  # (4, N, 16)
+            cells4 = torch.stack([cells4[0], cells4[1][..., tperm],
+                                  cells4[2], cells4[3][..., tperm]])
+            if search:
+                # root compaction: only legal afterstates of active
+                # games that are crowded (empty < since_empty) enter
+                # the tree; the rest take the base estimate, as the
+                # pruning would
+                aftc = torch.stack([
+                    aft[0], engf.transpose_codes(aft[1]),
+                    aft[2], engf.transpose_codes(aft[3]),
+                ]).reshape(4 * n, 4)  # canonical codes
+                empty_cnt = (cells4.reshape(4 * n, 16) == 0).sum(dim=1)
+                act = st.active[None, :].expand(4, n).reshape(4 * n)
+                need = (legal.reshape(4 * n) & act
+                        & (empty_cnt < scfg.since_empty))
         if policy == "random":
             # the reference's random_eval baseline: a uniform value per
             # candidate move
@@ -114,41 +130,33 @@ def _make_eval_segment(ts, scfg: SearchConfig, n: int, s_cap: int,
         elif not search:
             vals = eval_fn(weights, cells4)  # (4, N)
         else:
-            # root compaction: only legal afterstates of active games
-            # that are crowded (empty < since_empty) enter the tree;
-            # the rest take the base estimate, as the pruning would
-            aftc = torch.stack([
-                aft[0], engf.transpose_codes(aft[1]),
-                aft[2], engf.transpose_codes(aft[3]),
-            ]).reshape(4 * n, 4)  # canonical codes
-            empty_cnt = (cells4.reshape(4 * n, 16) == 0).sum(dim=1)
-            act = st.active[None, :].expand(4, n).reshape(4 * n)
-            need = (legal.reshape(4 * n) & act
-                    & (empty_cnt < scfg.since_empty))
+            count("search.steps")
             vals = search_values(weights, aftc, need).reshape(4, n)
-        # argmax picks the first maximum in both frameworks: keep the
-        # mask and the direction order
-        masked = torch.where(legal, vals, float("-inf"))
-        best_dir = masked.argmax(dim=0).to(torch.int32)
-        sel = best_dir.long()
-        aft_sel = aft[sel, ar]
-        best_delta = delta[sel, ar]
-        chosen = engf.canonicalize_chosen(aft_sel, best_dir)
-        done = ~legal.any(dim=0)
-        stepping = st.active & ~done
-        moved = torch.where(stepping[:, None], chosen, st.codes)
-        spawned, pos, val = engf.spawn_codes(moved, draws)
-        codes = torch.where(stepping[:, None], spawned, st.codes)
-        # lanes that do not step write to the spill column s_cap
-        sp = (pos | ((val - 1) << 4)).to(torch.int8)
-        wslot = torch.where(stepping, st.odometer.clamp(max=s_cap - 1), s_cap)
-        st.moves[ar, wslot] = best_dir.to(torch.int8)
-        st.spawns[ar, wslot] = sp
-        score = torch.where(stepping, st.score + best_delta, st.score)
-        odometer = torch.where(stepping, st.odometer + 1, st.odometer)
-        active = st.active & ~done
-        if limit_tile:
-            active = active & (engf.max_tile_codes(codes) < limit_tile)
+        with span("trial.select"):
+            # argmax picks the first maximum in both frameworks: keep the
+            # mask and the direction order
+            masked = torch.where(legal, vals, float("-inf"))
+            best_dir = masked.argmax(dim=0).to(torch.int32)
+            sel = best_dir.long()
+            aft_sel = aft[sel, ar]
+            best_delta = delta[sel, ar]
+            chosen = engf.canonicalize_chosen(aft_sel, best_dir)
+            done = ~legal.any(dim=0)
+            stepping = st.active & ~done
+            moved = torch.where(stepping[:, None], chosen, st.codes)
+            spawned, pos, val = engf.spawn_codes(moved, draws)
+            codes = torch.where(stepping[:, None], spawned, st.codes)
+            # lanes that do not step write to the spill column s_cap
+            sp = (pos | ((val - 1) << 4)).to(torch.int8)
+            wslot = torch.where(stepping, st.odometer.clamp(max=s_cap - 1),
+                                s_cap)
+            st.moves[ar, wslot] = best_dir.to(torch.int8)
+            st.spawns[ar, wslot] = sp
+            score = torch.where(stepping, st.score + best_delta, st.score)
+            odometer = torch.where(stepping, st.odometer + 1, st.odometer)
+            active = st.active & ~done
+            if limit_tile:
+                active = active & (engf.max_tile_codes(codes) < limit_tile)
         return _EvalState(codes, score, odometer, active, st.moves, st.spawns)
 
     def segment(st: _EvalState, weights) -> _EvalState:
@@ -156,7 +164,8 @@ def _make_eval_segment(ts, scfg: SearchConfig, n: int, s_cap: int,
         tperm = torch.from_numpy(_TPERM).to(device)
         ar = torch.arange(n, device=device)
         for _ in range(k):
-            st = step(st, weights, tperm, ar)
+            with span("trial.step"):
+                st = step(st, weights, tperm, ar)
         return st
 
     segment.search_stats = stats
@@ -228,30 +237,33 @@ def trial(
             break
         st = seg(st, weights)
         steps += steps_per_call
-        # the one host read of the segment
-        host = torch.stack(
-            [st.active.to(torch.int32), st.score, st.odometer]
-        ).cpu().numpy()
+        with span("trial.read"):
+            # the one host read of the segment
+            host = torch.stack(
+                [st.active.to(torch.int32), st.score, st.odometer]
+            ).cpu().numpy()
+            count("host_reads")
         active_np, scores_np, odos_np = host[0].astype(bool), host[1], host[2]
         n_active = int(active_np.sum())
-        # per-game completion log: each game's score/moves as it
-        # finishes, plus a running average over completed games
-        newly = np.nonzero(prev_active & ~active_np)[0]
-        if newly.size:
-            for i in newly:
+        with span("trial.progress"):
+            # per-game completion log: each game's score/moves as it
+            # finishes, plus a running average over completed games
+            newly = np.nonzero(prev_active & ~active_np)[0]
+            if newly.size:
+                for i in newly:
+                    log.add(
+                        f"game {int(i) + 1}/{num}: score = "
+                        f"{int(scores_np[i])}, moves = {int(odos_np[i])}"
+                    )
+                done_mask = ~active_np
                 log.add(
-                    f"game {int(i) + 1}/{num}: score = "
-                    f"{int(scores_np[i])}, moves = {int(odos_np[i])}"
+                    f"-- {int(done_mask.sum())}/{num} games done, running "
+                    f"average = {float(scores_np[done_mask].mean()):.1f}, "
+                    f"{round(time.time() - t0, 1)} s elapsed"
                 )
-            done_mask = ~active_np
-            log.add(
-                f"-- {int(done_mask.sum())}/{num} games done, running "
-                f"average = {float(scores_np[done_mask].mean()):.1f}, "
-                f"{round(time.time() - t0, 1)} s elapsed"
-            )
-        prev_active = active_np
-        if progress_cb is not None:
-            progress_cb(st)
+            prev_active = active_np
+            if progress_cb is not None:
+                progress_cb(st)
         if n_active == 0:
             break
         if int(odos_np.max()) >= step_cap:
