@@ -52,15 +52,21 @@ Phases, one line of output each (the kernel phases one per check):
      and n=5, the 16^3 class at n=3, the 16^2 class at n=2); then
      kernel and plain times beside the bound and the earlier reading (no
      library call computes a D4 orbit sum);
-  7. train_step: one n=5 train step of 8192 envs through the kernels
+  7. feature_index and train_step: the train actor's index kernel
+     (``feature_index``) at the train cells' shapes (FEATURE_INDEX_ENVS:
+     the afterstates of 262,144 random n=5 boards and of 131,072 n=6
+     ones), bitwise against its plain version, then its time (CUDA
+     events, warm L2), the plain version's and the bound (each board's
+     16 bytes of codes read once, its F + 2 Kc int32 indices written
+     once); then one n=5 train step of 8192 envs through the kernels
      on the card and through their plain versions on the CPU, from one
      state (two warm steps on the card) with dyadic weights and the
      same numpy draws: every integer of the state and the staged
      recorder rows bitwise, the weights and TC sums within 2^-17 of the
      table's largest entry;
   8. train: ``Trainer.run`` at the shipped defaults (n=5, 8192 envs,
-     K=64) for 12 segments: every step launched each kernel and
-     ``cross_apply`` once, the weights are finite, episodes completed, the saved best game
+     K=64) for 12 segments: every step launched each kernel,
+     ``cross_apply`` and ``feature_index`` once, the weights are finite, episodes completed, the saved best game
      replays to its score, and the checkpoint loads through the port's
      ``load_agent`` and plays 256 games; env-steps/s, wall per
      segment, and the ma-100 of the first and last windows (the
@@ -256,6 +262,7 @@ SERVE_GAMES = 8192
 SERVE_B = 4 * SERVE_GAMES
 TRAIN_B = 8192  # envs of the shipped TrainConfig
 TRAIN_SEGMENTS = 12
+FEATURE_INDEX_ENVS = {5: 262_144, 6: 131_072}  # the train cells' envs
 REPEAT_SEGMENTS = 4  # phase 13's runs, held bitwise against each other
 VARIANT_SEGMENTS = 6
 FLAGSHIP_SEGMENTS = 8  # n=6 at the shipped width
@@ -310,6 +317,7 @@ KERNEL_KINDS = [("eval_class", "eval_class_kernel"),
                 ("grad_class", "grad_class_"),
                 ("fold_class", "fold_class_kernel"),
                 ("cross_apply", "cross_apply_"),
+                ("feature_index", "feature_index_kernel"),
                 ("advanced-index gather", "index_elementwise_kernel"),
                 ("engine gather", "vectorized_gather_kernel"),
                 ("index_add_", "indexFuncLargeIndex"),
@@ -1163,6 +1171,50 @@ def _card_step_against_cpu(acfg, tcfg, segment: bool = False,
     return card, plain, slack, launches
 
 
+def phase_feature_index() -> dict:
+    """Phase 7's first part: ``feature_index`` at the train cells'
+    shapes, the afterstates of random boards as the actor gives them
+    (up/down transposed, canonical form): bitwise its plain version's
+    (``feature_index_reference``), then its time, the plain version's
+    and the bound."""
+    from tpu2048_torch.engine import fast as engf
+    from tpu2048_torch.features.ntuple import get_tuple_set
+    from tpu2048_torch.ops import kernels
+
+    rows = []
+    for n, envs in FEATURE_INDEX_ENVS.items():
+        ts = get_tuple_set(n)
+        rng = np.random.default_rng(n)
+        codes = torch.from_numpy(rng.integers(0, 1 << 16, (envs, 4)).astype(
+            np.int32)).cuda()
+        aft = engf.afterstates_full(codes)[0]
+        got = kernels.feature_index(ts, aft)
+        want = kernels.feature_index_reference(ts, aft)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"feature_index n={n}: the kernel's indices "
+                                 "differ from its plain version's")
+        kc = got[1].shape[-1]
+        del got, want
+        k = _device_ms(lambda: kernels.feature_index(ts, aft))
+        pl = _device_ms(lambda: kernels.feature_index_reference(ts, aft),
+                        reps=3, inner=2)
+        # each board's codes read once, its indices written once
+        nbytes = 4 * envs * (16 + 4 * (ts.num_feat + 2 * kc))
+        row = {"case": f"n={n}", "boards": 4 * envs, "feats": ts.num_feat,
+               "gathers": kc, "ms": k[0], "plain_ms": pl[0],
+               "library_ms": None, "bound_ms": _bound_ms(nbytes),
+               "bytes": nbytes, "bound_share": _bound_ms(nbytes) / k[0]}
+        _line("feature_index_time", **row, kernel_ms_median_min_max=list(k),
+              plain_ms_median_min_max=list(pl), plain="bitwise",
+              library="none: no one call builds n-tuple indices")
+        rows.append(row)
+        del aft, codes
+    return {"max_abs_err": 0, "ms": rows[0]["ms"],
+            "plain_ms": rows[0]["plain_ms"], "library_ms": None,
+            "bound_ms": rows[0]["bound_ms"], "instances": rows}
+
+
 def phase_train_step() -> None:
     from tpu2048_torch.config import AgentConfig, TrainConfig
 
@@ -1261,6 +1313,11 @@ def phase_train(name: str) -> tuple:
             raise AssertionError(f"train run launched {launches}, expected "
                                  f"{want} (every kernel on every step)")
         launches = _with_crosses(launches, steps, "train run")
+        if kernels.feature_index.launches != steps:
+            raise AssertionError(f"train run: feature_index launched "
+                                 f"{kernels.feature_index.launches}, "
+                                 f"expected {steps}")
+        launches["feature_index"] = kernels.feature_index.launches
         st = tr.state
         if not bool(torch.isfinite(st.weights).all()):
             raise AssertionError("non-finite weights after training")
@@ -1489,7 +1546,7 @@ def _reset_launches() -> None:
     from tpu2048_torch.ops import kernels
 
     for k in (kernels.eval_class, kernels.grad_class, kernels.fold_class,
-              kernels.cross_apply):
+              kernels.cross_apply, kernels.feature_index):
         k.launches = 0
 
 
@@ -3058,6 +3115,7 @@ def main() -> int:
     serve = phase_slice()
     kstats["grad_class"] = phase_grad_class()
     kstats["fold_class"] = phase_fold_class()
+    kstats["feature_index"] = phase_feature_index()
     phase_train_step()
     train, trained = phase_train("smoke")
     phase_grad_trained(trained, kstats["grad_class"])
@@ -3105,13 +3163,19 @@ def main() -> int:
                 "model_axis": model_axis.get(k), "drivers": drivers.get(k),
                 "bench": bench.get(k), "breakdown": breakdown.get(k)}
 
+    # feature_index is counted in phase 8's run alone
+    replaces["feature_index"] = ("none: the reference builds the actor's "
+                                 "indices with XLA ops "
+                                 "(tpu2048/ops/dispatch.py)")
+    paths = {k: by_path(k) for k in replaces if k != "feature_index"}
+    paths["feature_index"] = {"train": train["feature_index"]}
     print(json.dumps({"kernels": [{
         "name": k,
         "route": "cuda",
         "source": f"tpu2048_torch/ops/csrc/{k}.cu",
         "replaces": replaces[k],
-        "launches": sum(v for v in by_path(k).values() if v),
-        "launches_by_path": by_path(k),
+        "launches": sum(v for v in paths[k].values() if v),
+        "launches_by_path": paths[k],
         "bound_by": "bytes",
         # the same two readings under this round's names
         "bound_us": 1e3 * kstats[k]["bound_ms"],

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: ``eval_class``, ``grad_class``,
-``fold_class`` and ``cross_apply`` against their plain PyTorch
-versions, the serving slice and the expectimax search through the
+``fold_class``, ``cross_apply`` and ``feature_index`` against their
+plain PyTorch versions, the serving slice and the expectimax search through the
 kernel against the same games through plain gathers, one train step
 through the kernels against the same step on the CPU through the plain
 versions, and two training runs from one seed, bitwise.
@@ -456,6 +456,117 @@ def test_variant_train_step_card_matches_cpu_plain(name):
     bootstrap = acfg.actor_precision == "bf16" and acfg.engine_mode == "codes"
     assert launches == {"eval_class": 1 + bootstrap, "grad_class": 1,
                         "fold_class": int(acfg.sym_impl == "canonical")}
+
+
+FI_NS = [2, 3, 4, 5, 6, 7]
+FI_CELLS = {5: 262_144, 6: 131_072}  # the train cells' envs
+
+
+def _fi_codes(boards: int, seed: int, dev) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 1 << 16, (4, boards, 4))
+                            .astype(np.int32)).to(dev)
+
+
+def _fi_same(got, want):
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("transposed", [(1, 3), ()])
+@pytest.mark.parametrize("canonical", [True, False])
+@pytest.mark.parametrize("boards", [1, 1001])
+@pytest.mark.parametrize("n", FI_NS)
+def test_feature_index_kernel_bitwise_plain(n, boards, canonical, transposed):
+    """The kernel's indices equal its plain version's bit for bit, at
+    every tuple set, on random codes (every exponent, 13 and up
+    included), with the up/down slots transposed and with none."""
+    dev = needs_card()
+    ts = get_tuple_set(n)
+    codes = _fi_codes(boards, seed=n + boards, dev=dev)
+    before = kernels.feature_index.launches
+    got = kernels.feature_index(ts, codes, transposed, canonical)
+    torch.cuda.synchronize()
+    assert kernels.feature_index.launches == before + 1
+    _fi_same(got, kernels.feature_index_reference(ts, codes, transposed,
+                                                  canonical))
+
+
+@pytest.mark.parametrize("n", sorted(FI_CELLS))
+def test_feature_index_kernel_at_the_train_cells_size(n):
+    """At the train cells' 4 x envs rows: random codes, and the
+    afterstates of random boards as the actor gives them."""
+    dev = needs_card()
+    from tpu2048_torch.engine import fast as engf
+
+    ts = get_tuple_set(n)
+    codes = _fi_codes(FI_CELLS[n], seed=n, dev=dev)
+    aft = engf.afterstates_full(codes[0])[0]
+    for c in (codes, aft):
+        _fi_same(kernels.feature_index(ts, c),
+                 kernels.feature_index_reference(ts, c))
+
+
+def test_feature_index_kernel_refuses_bad_input():
+    dev = needs_card()
+    ts = get_tuple_set(5)
+    codes = _fi_codes(33, seed=1, dev=dev)
+    flat = codes.reshape(-1)
+    shifted = torch.cat([flat[:1], flat])[1:].view(codes.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.feature_index(ts, shifted)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.feature_index(ts, codes.transpose(0, 1))
+    with pytest.raises(TypeError, match="int32"):
+        kernels.feature_index(ts, codes.long())
+
+
+def test_feature_index_launches_once_a_train_step():
+    dev = needs_card()
+    from tpu2048_torch.draws import TorchDraws
+
+    acfg = AgentConfig()
+    tcfg = TrainConfig(num_envs=1024, steps_per_call=4, ring_size=4096,
+                       max_record_steps=256)
+    ts = get_tuple_set(acfg.n)
+    draws = TorchDraws(torch.Generator(device=dev).manual_seed(1))
+    st = td.init_td_state(ts, acfg, tcfg, draws, dev.type)
+    segment = td.make_train_segment(ts, acfg, tcfg, draws)
+    before = kernels.feature_index.launches
+    segment(st)
+    torch.cuda.synchronize()
+    assert kernels.feature_index.launches == before + 4
+
+
+@pytest.mark.parametrize("n", [5, 6])
+def test_train_segments_with_the_kernels_indices_equal_the_plain_ones(
+        n, monkeypatch):
+    """Two segments of the shipped learner from one seed on the card,
+    the actor's indices once from the kernel and once from its plain
+    version: every state leaf bitwise equal."""
+    dev = needs_card()
+    from chip_smoke import _flat
+    from tpu2048_torch.draws import TorchDraws
+
+    acfg = AgentConfig(n=n)
+    tcfg = TrainConfig(num_envs=8192, steps_per_call=16, ring_size=8192 * 16)
+    ts = get_tuple_set(n)
+    runs = []
+    for build in (kernels.feature_index, kernels.feature_index_reference):
+        monkeypatch.setattr(kernels, "feature_index", build)
+        draws = TorchDraws(torch.Generator(device=dev).manual_seed(n))
+        st = td.init_td_state(ts, acfg, tcfg, draws, dev.type)
+        segment = td.make_train_segment(ts, acfg, tcfg, draws)
+        for _ in range(2):
+            st = segment(st)
+        runs.append(_flat(st))
+    a, b = runs
+    assert a.keys() == b.keys()
+    for name in a:
+        np.testing.assert_array_equal(a[name], b[name], name)
 
 
 class _StopAfter:

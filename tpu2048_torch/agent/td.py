@@ -93,10 +93,8 @@ only: the model group's ranks hold the same envs.
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import List, NamedTuple, Optional, Union
 
-import numpy as np
 import torch
 
 from ..config import AgentConfig, TrainConfig
@@ -121,6 +119,10 @@ _SETTINGS = {
     "actor_precision": ("bf16", "bf16x2"),
     "engine_mode": ("codes", "cells"),
 }
+
+# the direction slots of ``engine.fast.afterstates_full`` that hold
+# their afterstates transposed (up, down)
+_TRANSPOSED = (1, 3)
 
 
 class Metrics(NamedTuple):
@@ -345,15 +347,6 @@ def init_td_state(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
     )
 
 
-@lru_cache(maxsize=None)
-def _tperm(device: torch.device) -> torch.Tensor:
-    """Transposed-cell -> canonical-cell permutation (cell (i, j) of
-    the transposed board is cell (j, i) of the canonical one), moved
-    to the device once: a per-step host copy would synchronise."""
-    return torch.from_numpy(np.arange(16).reshape(4, 4).T.reshape(16)
-                            ).to(device)
-
-
 def _tc_apply(w: torch.Tensor, e: torch.Tensor, a: torch.Tensor,
               alpha: torch.Tensor, dbar: torch.Tensor) -> None:
     """The TC rule on one table (or block), in place: the rate from E
@@ -418,7 +411,7 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
         # (the TD bootstrap); "bf16x2": exact selection
         train_ev = table_dispatch.make_train_evaluator(
             ts, ops, canonical=canon,
-            precision="bf16" if actor_bf16 else None, mesh=mesh)
+            precision="bf16" if actor_bf16 else None, mesh=mesh, codes=True)
         if actor_bf16:
             mxu_exact = table_dispatch.make_mxu_eval_idx(ts, ops, mesh)
     else:
@@ -557,13 +550,10 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
             if codes_mode:
                 codes = state.env.codes
                 aftc, delta4, legal, _t = engf.afterstates_full(codes)
-                cells4 = engf.cells_from_codes(aftc)  # (4, N, 16)
-                # up/down come back transposed: permute their cells back
-                tperm = _tperm(device)
-                cells4 = torch.stack([cells4[0], cells4[1][..., tperm],
-                                      cells4[2], cells4[3][..., tperm]])
-                mxu4, gth4, idx4, cidx4, mult4 = train_ev(state.weights,
-                                                          cells4)
+                # indices straight from the codes; up/down come back
+                # transposed
+                mxu4, gth4, idx4, cidx4, mult4 = train_ev(
+                    state.weights, aftc, _TRANSPOSED)
                 masked = torch.where(legal, mxu4 + gth4, float("-inf"))
                 # argmax takes the first maximum in both frameworks
                 best_dir = masked.argmax(dim=0).to(torch.int32)
@@ -575,8 +565,6 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
                 best_delta = sel(delta4)
                 done = ~legal.any(dim=0)
                 idx_c = sel(idx4)  # (N, F)
-                # the chosen board's cells: for its 8 images under "index"
-                chosen_cells = sel(cells4) if num_sym == 8 else None
                 if actor_bf16:
                     # exact TD bootstrap from the chosen afterstate's
                     # indices, read before this step's update (unused on
@@ -585,6 +573,9 @@ def make_train_step(ts: TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
                 else:
                     best_val = sel(masked)
                 chosen_codes = engf.canonicalize_chosen(sel(aftc), best_dir)
+                # the chosen board's cells: for its 8 images under "index"
+                chosen_cells = (engf.cells_from_codes(chosen_codes)
+                                if num_sym == 8 else None)
             else:
                 boards = state.env.boards
                 chosen, best_dir, best_val, best_delta, done = select(

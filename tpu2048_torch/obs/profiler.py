@@ -31,7 +31,9 @@ The spans, ``layer.stage``, nested as listed:
 The counters: ``host_reads``, the search loop's reads that wait for
 the card (the tier choice and the segment's read); ``search.steps``;
 ``search.roots_needy``, the roots that needed the tree;
-``search.roots_expanded``, the roots the tree ran, padding included.
+``search.roots_expanded``, the roots the tree ran, padding included;
+``td.index_rows``, the train actor's boards whose indices went through
+``kernels.feature_index`` (``ops/dispatch.py``).
 """
 
 from __future__ import annotations

@@ -43,6 +43,8 @@ _ENTRY_POINTS = {
     "fold_class_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # key, per, valid, scratch, w, e, a, alpha, M, mean, tc, stream
     "cross_apply_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # codes, rows, per_slot, tmask, plan (host), idx, cidx, mult, stream
+    "feature_index_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 # held by a build and by the first load: one nvcc run and one bound
 # library per process, whichever threads ask at once
@@ -135,5 +137,7 @@ def load_library() -> ctypes.CDLL:
             lib.cuda_error_string.restype = ctypes.c_char_p
             lib.grad_class_scratch_words.argtypes = [_I, _I, _I]
             lib.grad_class_scratch_words.restype = _L
+            lib.feature_index_plan_words.argtypes = []
+            lib.feature_index_plan_words.restype = _I
             _LIBRARY = lib
         return _LIBRARY

@@ -58,6 +58,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from ..features.ntuple import TupleSet, feature_indices, get_tuple_set
+from ..obs.profiler import count
 from . import kernels
 from . import onehot as oh
 from .kernels import scatter_add_ordered
@@ -248,7 +249,7 @@ def make_evaluator(ts: TupleSet, mode: str, canonical: bool = False,
 
 def make_train_evaluator(ts: TupleSet, mode: str, canonical: bool = False,
                          precision: Optional[str] = None,
-                         mesh=None) -> Callable:
+                         mesh=None, codes: bool = False) -> Callable:
     """Evaluator that also returns the indices it computed, so the
     train step selects the chosen afterstate's features instead of
     recomputing them; the reference's ``split=True`` form.
@@ -263,6 +264,14 @@ def make_train_evaluator(ts: TupleSet, mode: str, canonical: bool = False,
     ``canonical``.  Under a ``mesh`` with a model axis ``weights`` is
     this rank's shard, and one all-reduce over the model group sums
     the pieces (see the module doc).
+
+    With ``codes``, the codes form: fn(weights, codes (S, N, 4),
+    transposed) -> the same, of the (S, N) boards whose packed row
+    codes are given, the slots in ``transposed`` holding their boards
+    transposed (the engine's up/down afterstates).  Its indices come
+    from ``kernels.feature_index`` (one kernel on the card) where the
+    mode takes the kernels, else from its plain version; the rows it
+    gives the kernel's wrapper add to the ``td.index_rows`` counter.
     """
     resolve_mode(mode, torch.device("cpu"))  # reject bad modes now
     classes = oh.build_table_classes(ts)
@@ -272,17 +281,17 @@ def make_train_evaluator(ts: TupleSet, mode: str, canonical: bool = False,
     if canonical:
         from ..features.canonical import canonical_gather_indices
 
-    def ev(weights: torch.Tensor, flat_boards: torch.Tensor):
-        shape = flat_boards.shape[:-1]
-        b = flat_boards[..., 0].numel()
-        idx = feature_indices(ts, flat_boards)
+    def values(weights: torch.Tensor, idx: torch.Tensor,
+               cidx: Optional[torch.Tensor]):
+        """(mxu, gth) of the (..., F) indices and, in canonical form,
+        the (..., K) canonical ones."""
+        shape = idx.shape[:-1]
+        b = idx[..., 0].numel()
         idx2 = idx.reshape(b, ts.num_feat)
         resolved = _train_side(resolve_mode(mode, weights.device))
-        cidx = mult = None
         gidx = None
         if len(classes.gather_feats):
             if canonical:
-                cidx, mult = canonical_gather_indices(ts, flat_boards)
                 gidx = cidx.reshape(b, -1)
             else:
                 gidx = idx2[:, _gather_feats(ts.n, idx2.device)]
@@ -302,9 +311,26 @@ def make_train_evaluator(ts: TupleSet, mode: str, canonical: bool = False,
                                        precision)
             if gidx is not None:
                 gth = weights[gidx].sum(dim=-1)
-        return mxu.reshape(shape), gth.reshape(shape), idx, cidx, mult
+        return mxu.reshape(shape), gth.reshape(shape)
 
-    return ev
+    def ev(weights: torch.Tensor, flat_boards: torch.Tensor):
+        idx = feature_indices(ts, flat_boards)
+        cidx = mult = None
+        if canonical and len(classes.gather_feats):
+            cidx, mult = canonical_gather_indices(ts, flat_boards)
+        return (*values(weights, idx, cidx), idx, cidx, mult)
+
+    def ev_codes(weights: torch.Tensor, row_codes: torch.Tensor,
+                 transposed):
+        if uses_kernels(mode, row_codes.device):
+            count("td.index_rows", row_codes.shape[0] * row_codes.shape[1])
+            build = kernels.feature_index
+        else:
+            build = kernels.feature_index_reference
+        idx, cidx, mult = build(ts, row_codes, transposed, canonical)
+        return (*values(weights, idx, cidx), idx, cidx, mult)
+
+    return ev_codes if codes else ev
 
 
 def make_mxu_eval_idx(ts: TupleSet, mode: str, mesh=None) -> Callable:

@@ -1,13 +1,15 @@
 """Wrappers of the port's CUDA kernels (``tpu2048/ops/pallas_kernels.py``,
-``tpu2048/ops/fold_kernel.py``, and the canonical learner's stacked
-scatter, ``tpu2048/agent/td.py:669``).
+``tpu2048/ops/fold_kernel.py``, the canonical learner's stacked
+scatter, ``tpu2048/agent/td.py:669``, and the train actor's feature
+indices, which the reference builds with XLA ops).
 
 Each wrapper checks what it is given, launches its kernel on torch's
 current stream for CUDA tensors, and takes its plain PyTorch version
 only for CPU tensors.  Each counts its launches in a plain integer
 attribute (``eval_class.launches``, ``grad_class.launches``,
-``fold_class.launches``, ``cross_apply.launches``), so a run can show
-that its path went through the kernel.
+``fold_class.launches``, ``cross_apply.launches``,
+``feature_index.launches``), so a run can show that its path went
+through the kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +20,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..features.ntuple import TupleSet, get_tuple_set
+from ..engine.fast import cells_from_codes
+from ..features.canonical import (_gather_feat_ids, _orbit_index_plan,
+                                  canonical_gather_indices)
+from ..features.ntuple import (TupleSet, _index_plan, feature_indices,
+                               get_tuple_set)
 from ..features.symmetry import (_digit_transpose, _table_geometry,
                                  build_sym_transforms, symmetrize_class_sum)
 
@@ -721,3 +727,178 @@ def cross_apply(weights: torch.Tensor, opt_e: torch.Tensor,
 
 
 cross_apply.launches = 0
+
+
+# -- feature_index (the train actor's indices; no TPU kernel) ---------------
+
+# csrc/feature_index.cu's limits: features, cells of a tuple, gather
+# features; and its plan's layout, in int32 words (``struct Plan``)
+FI_MAX_FEAT, FI_MAX_TERMS, FI_MAX_GATHER, FI_IMAGES = 64, 6, 16, 8
+_FI_DHEAD, _FI_DTERM, _FI_GFEAT, _FI_GIMAGES, _FI_GOWN, _FI_GCELL, \
+    _FI_GIMG, _FI_WORDS = 8, 136, 904, 920, 936, 952, 1048, 2072
+
+
+@lru_cache(maxsize=None)
+def _tperm(device: torch.device) -> torch.Tensor:
+    """Transposed-cell -> canonical-cell permutation (cell (i, j) of
+    the transposed board is cell (j, i) of the canonical one), moved
+    to the device once: a per-step host copy would synchronise."""
+    return torch.from_numpy(np.arange(16).reshape(4, 4).T.reshape(16)
+                            ).to(device)
+
+
+def _gathers_out(ts: TupleSet, canonical: bool) -> int:
+    """The gather features whose canonical indices are written: Kc in
+    canonical form, none otherwise."""
+    return len(_gather_feat_ids(ts.n)) if canonical else 0
+
+
+def feature_index_reference(ts: TupleSet, codes: torch.Tensor,
+                            transposed=(1, 3), canonical: bool = True
+                            ) -> tuple:
+    """Plain version of ``feature_index``: the slots' cells from their
+    codes, those of the ``transposed`` slots permuted back, then
+    ``feature_indices`` and, in canonical form with gather features,
+    ``canonical_gather_indices``."""
+    cells4 = cells_from_codes(codes)  # (S, N, 16)
+    # the transposed slots (up/down): permute their cells back
+    tperm = _tperm(codes.device)
+    cells4 = torch.stack([c[..., tperm] if d in transposed else c
+                          for d, c in enumerate(cells4)])
+    idx4 = feature_indices(ts, cells4)
+    cidx4 = mult4 = None
+    if _gathers_out(ts, canonical):
+        cidx4, mult4 = canonical_gather_indices(ts, cells4)
+    return idx4, cidx4, mult4
+
+
+@lru_cache(maxsize=None)
+def feature_index_plan(n: int, canonical: bool) -> np.ndarray:
+    """The kernel's plan of tuple set ``n`` (``csrc/feature_index.cu``'s
+    ``struct Plan``), (_FI_WORDS,) int32, from the tuple set's own
+    plans: ``ntuple._index_plan``'s columns and place values with its
+    offsets, and in canonical form ``canonical._orbit_index_plan``.
+
+    There a gather feature's 8 images read the cells of its identity
+    image in other orders, so the plan lists those cells once (its
+    digits) and, per image, each digit's place value and the image's
+    offset.  The images fall in features whose tables do not overlap,
+    so the least index is among the images in the feature of least
+    offset, and no image elsewhere can equal it: the plan lists image 0
+    (the feature's own index) and then those images alone, with
+    whether image 0 is one of them.  The other ("direct") features list
+    their terms.  Raises ValueError for a tuple set beyond the kernel's
+    limits."""
+    ts = get_tuple_set(n)
+    cols, coef = _index_plan(n)
+    gf = _gather_feat_ids(n) if _gathers_out(ts, canonical) else []
+    direct = [f for f in range(ts.num_feat) if f not in set(gf)]
+    arity = (coef != 0).sum(axis=1)
+    dterms = int(arity[direct].max()) if direct else 0
+    gterms = int(arity[gf].max()) if len(gf) else 0
+    if ts.num_feat > FI_MAX_FEAT or len(gf) > FI_MAX_GATHER or \
+            max(dterms, gterms) > FI_MAX_TERMS:
+        raise ValueError(
+            f"feature_index: tuple set n={n} ({ts.num_feat} features of up "
+            f"to {max(dterms, gterms)} cells, {len(gf)} gather features) is "
+            f"beyond the kernel's {FI_MAX_FEAT}, {FI_MAX_TERMS} and "
+            f"{FI_MAX_GATHER}")
+    w = np.zeros(_FI_WORDS, np.int64)
+    w[:5] = ts.num_feat, len(direct), dterms, len(gf), gterms
+    for i, f in enumerate(direct):
+        w[_FI_DHEAD + 2 * i: _FI_DHEAD + 2 * i + 2] = f, ts.offsets[f]
+        nz = np.flatnonzero(coef[f])
+        at = _FI_DTERM + 2 * FI_MAX_TERMS * i
+        w[at: at + 2 * len(nz): 2] = cols[f, nz]
+        w[at + 1: at + 2 * len(nz): 2] = coef[f, nz]
+    if len(gf):
+        ocols, ocoef, ooff = _orbit_index_plan(n)
+        for k, f in enumerate(gf):
+            w[_FI_GFEAT + k] = f
+            digits = [int(c) for c, p in zip(ocols[0, k], ocoef[0, k]) if p]
+            w[_FI_GCELL + FI_MAX_TERMS * k:][:len(digits)] = digits
+            low = int(ooff[:, k].min())
+            least = [s for s in range(FI_IMAGES) if ooff[s, k] == low]
+            # the least feature's table ends before any other image's
+            first = int(np.flatnonzero(ts.offsets == low)[0])
+            if (ooff[:, k] != low).any() and \
+                    ooff[ooff[:, k] != low, k].min() < low + ts.sizes[first]:
+                raise ValueError(f"feature_index: n={n}: gather feature {f}'s "
+                                 "images share a table")
+            images = [0] + [s for s in least if s]
+            w[_FI_GIMAGES + k] = len(images)
+            w[_FI_GOWN + k] = int(least[0] == 0)
+            for i, s in enumerate(images):
+                place = {int(c): int(p) for c, p in zip(ocols[s, k],
+                                                         ocoef[s, k]) if p}
+                if set(place) != set(digits):
+                    raise ValueError(f"feature_index: n={n}: image {s} of "
+                                     f"gather feature {f} reads other cells")
+                at = _FI_GIMG + (FI_IMAGES * k + i) * 8
+                w[at: at + len(digits)] = [place[c] for c in digits]
+                w[at + FI_MAX_TERMS] = ooff[s, k]
+    return w.astype(np.int32)
+
+
+@lru_cache(maxsize=None)
+def _check_plan_layout() -> None:
+    from .build import load_library
+
+    if load_library().feature_index_plan_words() != _FI_WORDS:
+        raise RuntimeError("feature_index: the kernel's plan layout and "
+                           "the wrapper's differ")
+
+
+def feature_index(ts: TupleSet, codes: torch.Tensor, transposed=(1, 3),
+                  canonical: bool = True) -> tuple:
+    """The train actor's indices of (S, N) boards from their (S, N, 4)
+    int32 row codes, slots listed in ``transposed`` holding their
+    boards transposed (the engine's up/down afterstates): ``(idx (S, N,
+    F), cidx (S, N, Kc), mult (S, N, Kc))`` int32, ``idx`` the
+    flat-table indices (``ntuple.feature_indices``) and, in canonical
+    form with gather features, ``cidx`` and ``mult`` their
+    canonical-orbit indices and multiplicities
+    (``canonical.canonical_gather_indices``), else None for both.  On
+    the card one kernel, given the tuple set's plan
+    (``feature_index_plan``) as its parameters, reads the codes and
+    writes the three, bitwise ``feature_index_reference``, the CPU's."""
+    if codes.dtype != torch.int32 or codes.dim() != 3 or \
+            codes.shape[-1] != 4:
+        raise TypeError(f"feature_index: codes must be (S, N, 4) int32, got "
+                        f"{tuple(codes.shape)} {codes.dtype}")
+    slots, n = codes.shape[:2]
+    if not all(0 <= d < slots for d in transposed):
+        raise ValueError(f"feature_index: transposed slots {transposed} "
+                         f"outside 0 .. {slots - 1}")
+    if not codes.is_contiguous():
+        raise ValueError("feature_index: codes must be contiguous")
+    if _check_device("feature_index", codes) == "cpu":
+        return feature_index_reference(ts, codes, transposed, canonical)
+    _check_plan_layout()
+    plan = feature_index_plan(ts.n, canonical)
+    kc = _gathers_out(ts, canonical)
+    rows = slots * n
+    if rows * max(ts.num_feat, kc) >= 2**31 or slots > 31:
+        raise ValueError(f"feature_index: {slots} x {n} boards are past "
+                         "int32 indexing")
+    if codes.data_ptr() % 16:
+        raise ValueError("feature_index: codes must be 16-byte aligned")
+    idx4 = torch.empty((slots, n, ts.num_feat), dtype=torch.int32,
+                       device=codes.device)
+    cidx4 = mult4 = None
+    if kc:
+        cidx4 = torch.empty((slots, n, kc), dtype=torch.int32,
+                            device=codes.device)
+        mult4 = torch.empty_like(cidx4)
+    if rows:
+        # the plan goes into the launch's parameters from host memory
+        _launch("feature_index", codes.device, codes.data_ptr(), rows, n,
+                sum(1 << d for d in set(transposed)), plan.ctypes.data,
+                idx4.data_ptr(),
+                cidx4.data_ptr() if kc else None,
+                mult4.data_ptr() if kc else None)
+        feature_index.launches += 1
+    return idx4, cidx4, mult4
+
+
+feature_index.launches = 0
