@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run one cell of the benchmark once, on the CUDA card.
 
-    python3 benchmark/run.py --workload train-n5 --seed 7 --seconds 30 \\
+    python3 benchmark/run.py --workload train-n6 --seed 7 --seconds 30 \\
         --trace 0
 
 From the root of a checkout.  The last line of standard output is one

@@ -13,7 +13,7 @@ import run
 from small import cut
 
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CELLS = ["train-n5", "search-n5", "train-n6", "search-n6"]
+CELLS = ["search-n5", "train-n6", "search-n6"]
 
 
 def well_formed(line: str) -> dict:
@@ -46,9 +46,9 @@ def test_cell_runs_small(workload, capsys):
 
 
 def test_traced_run_small(capsys):
-    argv = ["--workload", "train-n5", "--seed", "11", "--seconds", "1",
+    argv = ["--workload", "train-n6", "--seed", "11", "--seconds", "1",
             "--trace", "1"]
-    assert run.main(argv, device="cpu", cell=cut("train-n5")) == 0
+    assert run.main(argv, device="cpu", cell=cut("train-n6")) == 0
     res = well_formed(capsys.readouterr()[0].strip().splitlines()[-1])
     assert res["correct"]
     assert "train.enqueue_ms_per_step" in res["metrics"]
@@ -76,7 +76,7 @@ def test_traced_search_placed_by_steps(capsys):
 def test_no_card_no_result():
     """Without a card the command prints nothing on stdout, exits 2."""
     r = subprocess.run([sys.executable, os.path.join(BENCH, "run.py"),
-                        "--workload", "train-n5", "--seed", "1",
+                        "--workload", "train-n6", "--seed", "1",
                         "--seconds", "1"], capture_output=True, text=True,
                        cwd=os.path.dirname(BENCH), timeout=300,
                        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
@@ -105,13 +105,13 @@ def test_no_jax_loaded():
 
 @pytest.mark.cuda
 def test_cell_on_the_card():
-    """One short run of train-n5 on the card (skips without one)."""
+    """One short run of train-n6 on the card (skips without one)."""
     import torch
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     r = subprocess.run([sys.executable, os.path.join(BENCH, "run.py"),
-                        "--workload", "train-n5", "--seed", "5",
+                        "--workload", "train-n6", "--seed", "5",
                         "--seconds", "3"], capture_output=True, text=True,
                        cwd=os.path.dirname(BENCH), timeout=1200)
     assert r.returncode == 0, r.stderr[-2000:]

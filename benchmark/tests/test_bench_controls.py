@@ -56,7 +56,7 @@ def reading(c, seed, mode):
 
 
 @pytest.mark.parametrize("workload,mode", [
-    ("train-n5", "half"), ("train-n5", "unchanged"),
+    ("train-n6", "half"), ("train-n6", "unchanged"),
     ("search-n5", "control"), ("search-n5", "half"),
     ("search-n5", "unchanged"), ("search-n5", "altered"),
 ])
@@ -66,7 +66,7 @@ def test_refused(workload, mode):
     assert not checks.verdict(nums, c.limits)["correct"], nums
 
 
-@pytest.mark.parametrize("workload", ["train-n5", "search-n5"])
+@pytest.mark.parametrize("workload", ["train-n6", "search-n5"])
 def test_sound_passes(workload):
     c = cell(workload)
     nums = reading(c, 22, "sound")
@@ -74,7 +74,7 @@ def test_sound_passes(workload):
 
 
 def test_train_control_far_from_sound():
-    c = cell("train-n5")
+    c = cell("train-n6")
     sound = controls.reading(c, 23, "cpu", "sound", 4.0)
     ctl = controls.reading(c, 23, "cpu", "control", 4.0)
     for name in ("table_gap_worst_leaf", "value_gap_p90"):
@@ -82,7 +82,7 @@ def test_train_control_far_from_sound():
 
 
 @pytest.mark.parametrize("workload,mode", [
-    ("train-n5", "half"), ("train-n5", "unchanged"),
+    ("train-n6", "half"), ("train-n6", "unchanged"),
     ("search-n5", "unchanged"), ("search-n5", "altered"),
 ])
 def test_run_says_not_correct(workload, mode, capsys):

@@ -45,7 +45,7 @@ def test_unknown_parts_refused(tmp_path):
     b["per_layer"].append({"name": "no_such_metric", "unit": "%",
                            "better": "higher", "source": "device_trace",
                            "layer": "device", "moves": "setup_s",
-                           "workloads": ["train-n5"]})
+                           "workloads": ["train-n6"]})
     path = tmp_path / "BENCHMARK.json"
     path.write_text(json.dumps(b))
     with pytest.raises(KeyError, match="unknown configuration"):
@@ -53,7 +53,7 @@ def test_unknown_parts_refused(tmp_path):
     with pytest.raises(KeyError, match="no traffic mix"):
         spec.load("y", str(path))
     with pytest.raises(KeyError, match="no reader"):
-        spec.load("train-n5", str(path))
+        spec.load("train-n6", str(path))
 
 
 @pytest.mark.parametrize("name", ["no_such_driver", "../run", ""])
@@ -77,3 +77,39 @@ def test_contract_shape():
     for m in b["per_layer"]:
         assert os.path.isfile(os.path.join(ROOT, "benchmark", "metrics",
                                            m["name"] + ".py"))
+
+
+def _config(entry):
+    with open(os.path.join(ROOT, entry["file"])) as f:
+        return json.load(f)
+
+
+def _train_mixes(config_name):
+    """The train mixes that the cells of a configuration run."""
+    mixes = []
+    for w in bench()["workloads"]:
+        with open(os.path.join(ROOT, "benchmark", "traffic",
+                               w["traffic"] + ".json")) as f:
+            traffic = json.load(f)
+        if w["config"] == config_name and traffic["driver"] == "train":
+            mixes.append(traffic)
+    return mixes
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in bench()["configs"]
+                                    if "train" in _config(c)])
+def test_train_sizes_fit_the_program(config):
+    """A configuration's train sizes stay inside what the program takes:
+    the episode ring holds a segment's episodes, the recorder's two int8
+    logs (at most one row an env) reserve at most 48 GB of the card, and
+    the 8-image index rows count in int32."""
+    entry = next(c for c in bench()["configs"] if c["name"] == config)
+    cfg = _config(entry)
+    run = cfg["train"]
+    n, f = int(run["num_envs"]), len(cfg["tuples"])
+    mixes = _train_mixes(config)
+    assert mixes, f"no train cell runs {config}"
+    for traffic in mixes:
+        assert run["ring_size"] >= n * traffic["steps_per_call"]
+    assert 2 * n * (run["max_record_steps"] + 1) <= 48e9
+    assert n * 8 * f < 2**31

@@ -9,7 +9,7 @@ at a cell's own size (no measured window):
   bf16), judged as the program is;
 * each fault of ``harness/faults.py`` that the cell can have.
 
-    python3 benchmark/tools/controls.py --workload train-n5 \\
+    python3 benchmark/tools/controls.py --workload train-n6 \\
         --seeds 1,2,3 --control-seeds 4,5,6 --fault-seeds 7,8,9 \\
         --out results/controls.jsonl
 

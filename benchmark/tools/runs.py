@@ -2,7 +2,7 @@
 """Run cells several times on the card and keep every result line.
 
     python3 benchmark/tools/runs.py --out results/sets.jsonl \\
-        --workload train-n5 --seeds 11,12,13 --seconds 30 --trace 0 \\
+        --workload train-n6 --seeds 11,12,13 --seconds 30 --trace 0 \\
         [--root DIR]
 
 Each run is its own process (``benchmark/run.py`` from ``--root``, the
